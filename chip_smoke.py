@@ -15,9 +15,10 @@ first phase that fails:
    built straight from committed arrays onto the card;
 3. each kernel against its plain torch version on that collection's
    tensors (K1 over a ~1M-posting plan, K2 over the padded 4,194,304 x
-   384 bf16 corpus with n_valid = 1,000,000 and Q = 8, K3 on the rows K2
-   selects, K4 over the ~20M-position phrase stream), timed with CUDA
-   events, with the card's least time for the same work beside it;
+   384 bf16 corpus with n_valid = 1,000,000 and Q = 8, and at D = 768 and
+   1024 on 262,144 rows, K3 on the rows K2 selects, K4 over the
+   ~20M-position phrase stream), timed with CUDA events, with the card's
+   least time for the same work beside it;
 4. the engine: 32 queries each of fulltext, phrase, hybrid RRF,
    unfiltered vector (the fused kNN) and filtered + faceted vector, with
    the launch counts reset before and read after each mode; one query per
@@ -304,6 +305,22 @@ def phase_kernels(reader, rng):
         bytes_moved=n_valid * d * 2 + 8 * d * 2 + bm.numel() * 8,
         ops=2 * n_valid * d * 8, peak_ops=BF16_FLOPS))
     log(f"K2 ok: err {err:.3g}, {ms:.4f} ms")
+    # K2 at the registry's wider embedding widths (768: bge-base, 1024:
+    # bge-large), whose rows must not outgrow the kernel's shared memory
+    for width in (768, 1024):
+        vw = torch.randn(262_144, width, generator=gen, device="cuda")
+        vw = (vw / vw.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+        qw = torch.randn(8, width, generator=gen, device="cuda")
+        qw = (qw / qw.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+        wm, _ = knn.subblock_max(vw, qw, 32, 250_000)
+        wp, _ = knn.subblock_max_plain(vw, qw, 32, 250_000)
+        torch.cuda.synchronize()
+        werr = (wm - wp).abs().max().item()
+        require(werr <= 1e-4, f"K2 max disagrees at D={width}: {werr}")
+        wms = time_ms(lambda: knn.subblock_max(vw, qw, 32, 250_000), 10)
+        log(f"K2 ok at D={width}: 262,144 rows, n_valid 250,000, Q=8, "
+            f"err {werr:.3g}, {wms:.4f} ms")
+        del vw, wm, wp
 
     # K3: the sub-blocks phase 2 selects for these queries (k = 16); timed
     # in turn with 23 more query batches' selections (~75 MB of rows, past
@@ -333,8 +350,7 @@ def phase_kernels(reader, rng):
     log(f"K3 ok: {nsel} sub-blocks, err {err:.3g}, {ms:.4f} ms")
 
     # K4: the whole phrase stream, spans of two Zipf-drawn terms
-    dw, _pw, tw, _wb, _W, _ws, bits = reader._device.phrase_windowed_arrays(
-        c, cap)
+    dw, tw, bits = reader._device.phrase_stream_arrays(c)
     tids = (rng.pareto(1.2, 2) * 50).astype(int) % N_TERMS
     spans = torch.tensor([[t, t + 1] for t in tids] + [[0, 0]] * 2,
                          dtype=torch.int32, device="cuda")
@@ -346,10 +362,14 @@ def phase_kernels(reader, rng):
     require(int(a1.sum()) > 0, "K4 counted nothing")
     ms = time_ms(lambda: bm25.phrase_counts(bits, tw, dw, spans, cap), 20)
     pms = time_ms(lambda: bm25.phrase_counts_plain(bits, tw, dw, spans, cap), 3)
+    # bytes it must move: the bits and term id of every position, the doc
+    # id of each counted group head only (one per anyorder count), the
+    # spans, and the two int32[cap] counters
     pp = dw.numel()
+    heads = int(a1.sum())
     out.append(kernel_record(
         "phrase_counts", 0.0, ms, pms,
-        bytes_moved=pp * 9 + spans.numel() * 4 + cap * 8,
+        bytes_moved=pp * 5 + heads * 4 + spans.numel() * 4 + cap * 8,
         ops=pp * 4 * spans.shape[0], peak_ops=F32_FLOPS))
     log(f"K4 ok: {pp} positions, exact, {ms:.4f} ms")
     for rec in out:

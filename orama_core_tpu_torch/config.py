@@ -138,18 +138,20 @@ class GpuConfig:
     budget_bucket_steps: Tuple[int, ...] = (
         1024, 16384, 65536, 262144, 1048576, 4194304,
     )
-    # Unfiltered vector queries take the fused kNN (ops/knn.py, K2 + K3)
+    # use_pallas, bm25_pallas and phrase_windowed are the reference's
+    # kernel-branch knobs, kept so its configs load. They gate nothing:
+    # the port always serves unfiltered vector queries with the fused kNN
+    # (ops/knn.py, K2 + K3), scans postings over the aligned plan (K1) and
+    # counts phrases with K4.
     use_pallas: bool = True
     # Vector scoring path: only "exact" (bf16 matmul) is ported; the
     # others raise NotImplementedError at commit/search
     vector_index: str = "exact"
     int8_phase1: str = "xla"
-    # BM25 posting scan over the aligned block plan (ops/bm25.py, K1)
     bm25_pallas: bool = True
     # Dense per-term score rows for Zipf-head terms (ops/bm25.py)
     bm25_dense_terms: int = 16      # max dense rows per field (0 disables)
     bm25_dense_df_ratio: int = 16   # df >= n_docs/ratio qualifies
-    # Windowed phrase reduction contract (ops/bm25.py, K4)
     phrase_windowed: bool = True
     ivf_threshold: int = 50_000
     ivf_nprobe: int = 16

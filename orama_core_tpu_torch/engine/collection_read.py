@@ -10,12 +10,12 @@ Device tensors live on ``cfg.device`` ("cuda" unless the caller asks for
 "cpu") and are cached per immutable committed generation. The reference
 takes its kernel branches only on a TPU backend (or when
 ``_test_force_fast_path`` is set): the aligned BM25 block plan, the
-windowed phrase stream and the fused kNN. Those gates are branch choices
-here that do not depend on the device — the port always takes the
-kernel-shaped branch (subject to the same config knobs), and each kernel
+windowed phrase stream and the fused kNN. The port takes them always,
+on any device: ``use_pallas``, ``bm25_pallas`` and ``phrase_windowed``
+stay in ``GpuConfig`` only so configs load, and gate nothing. Each kernel
 wrapper launches its CUDA kernel for CUDA tensors and runs its plain torch
-version for CPU tensors. So the CPU tests drive the same orchestration as
-the card.
+version for CPU tensors, so the CPU tests drive the same orchestration as
+the card, and no CUDA tensor is sent around a kernel.
 
 Left out of this slice (each raises or is absent): the sharded/mesh
 branches, ``search_batch`` and the batched fused program, int8, IVF/PQ and
@@ -229,11 +229,12 @@ class _DeviceCache:
             del self._store[k]
         return self._get(s, key, build)
 
-    def phrase_docmajor_arrays(self, s: CommittedStringIndex, cap: int):
-        """Commit-static doc-major position stream: (docs, poss, terms) of
-        every position of the field sorted once per generation by
-        (doc, pos) — stable, as the reference's ``lax.sort`` — plus the
-        per-doc CSR bounds int32[cap+1]."""
+    def phrase_stream_arrays(self, s: CommittedStringIndex):
+        """K4's commit-static input: (docs, terms, bits) of every position
+        of the field, sorted once per generation by (doc, pos) — stable,
+        as the reference's ``lax.sort`` — with the group bits of the
+        sorted stream. The reference's window meta (w_base, W, wsub) is
+        not built: K4 counts per doc without windows."""
 
         def build():
             steps = self.cfg.posting_bucket_steps
@@ -255,37 +256,9 @@ class _DeviceCache:
             d_dev, p_dev, t_dev = bm25_ops.sort_phrase_stream(
                 self.put(d_col), self.put(p_col), self.put(t_col)
             )
-            counts = np.bincount(pos_doc, minlength=cap).astype(np.int32)[:cap]
-            bounds = np.zeros(cap + 1, np.int32)
-            np.cumsum(counts, out=bounds[1:])
-            return d_dev, p_dev, t_dev, self.put(bounds)
+            return d_dev, t_dev, bm25_ops.phrase_static_bits(d_dev, p_dev)
 
-        return self._get(s, ("phrase_dm", cap), build)
-
-    def phrase_windowed_arrays(self, s: CommittedStringIndex, cap: int):
-        """The doc-major stream + the commit-static group bits for K4, in
-        the reference's (docs, poss, terms, w_base, W, wsub, bits) shape.
-        The window meta is kept where the reference's layout allows it;
-        K4 counts per doc directly, so a corpus too doc-dense for windows
-        (meta None) still takes this path, with empty window fields."""
-
-        def build():
-            d_dev, p_dev, t_dev, _bounds = self.phrase_docmajor_arrays(s, cap)
-            pp = len(s.positions)
-            pp_pad = int(d_dev.shape[0])
-            pos_doc = np.repeat(s.post_docs, np.diff(s.pos_starts))
-            counts = np.bincount(pos_doc, minlength=cap).astype(np.int64)
-            bounds = np.zeros(cap + 1, np.int64)
-            np.cumsum(counts[:cap], out=bounds[1:])
-            meta = bm25_ops.phrase_window_meta(bounds, pp, pp_pad)
-            if meta is None:
-                w_base, W, wsub = np.zeros(1, np.int32), 0, 0
-            else:
-                w_base, W, wsub = meta
-            bits = bm25_ops.phrase_static_bits(d_dev, p_dev)
-            return (d_dev, p_dev, t_dev, self.put(w_base), W, wsub, bits)
-
-        return self._get(s, ("phrase_win", cap), build)
+        return self._get(s, "phrase", build)
 
     # vector -----------------------------------------------------------------
 
@@ -884,9 +857,8 @@ class CollectionReader:
         masked: bool = True,
     ) -> torch.Tensor:
         """Multi-dispatch fulltext scores f32[cap]: per committed field the
-        posting scan (K1 over the aligned plan when ``bm25_pallas``) and
-        the phrase boost (K4 when ``phrase_windowed``), plus the host-scored
-        uncommitted window."""
+        posting scan (K1 over the aligned plan) and the phrase boost (K4),
+        plus the host-scored uncommitted window."""
         cap = self.capacity
         if not term.strip():
             # empty term matches every alive, filter-passing doc
@@ -925,52 +897,29 @@ class CollectionReader:
                         float(np.float32(gi.total_documents)),
                     )
                     # reference gate collection_read.py:1561-1565: the
-                    # aligned plan (K1) whenever the knob is on
-                    if self.cfg.bm25_pallas:
-                        need = bm25_ops.aligned_blocks_needed(p_len_list)
-                        nb = bucket_pad(max(need, 1), bm25_ops.PLAN_BUCKETS)
-                        sb_a, lo_a, hi_a = bm25_ops.build_block_plan_aligned(
-                            p_lo_list, p_len_list, nb
-                        )
-                        raw = bm25_ops.bm25_scores_blocked_aligned(
-                            d_docs, d_tf, d_ni, d_plens,
-                            put(sb_a), put(lo_a), put(hi_a), *scan_args,
-                            n_docs=cap, n_blocks=nb,
-                        )
-                    else:
-                        need = sum(
-                            (ln + bm25_ops.BLOCK - 1) // bm25_ops.BLOCK
-                            for ln in p_len_list
-                        )
-                        nb = bucket_pad(max(need, 1), bm25_ops.PLAN_BUCKETS)
-                        b_starts, b_valid = bm25_ops.build_block_plan(
-                            p_lo_list, p_len_list, nb
-                        )
-                        raw = bm25_ops.bm25_scores_blocked(
-                            d_docs, d_tf, d_ni, d_plens,
-                            put(b_starts), put(b_valid), *scan_args,
-                            n_docs=cap, n_blocks=nb,
-                        )
+                    # aligned plan (K1), always
+                    need = bm25_ops.aligned_blocks_needed(p_len_list)
+                    nb = bucket_pad(max(need, 1), bm25_ops.PLAN_BUCKETS)
+                    sb_a, lo_a, hi_a = bm25_ops.build_block_plan_aligned(
+                        p_lo_list, p_len_list, nb
+                    )
+                    raw = bm25_ops.bm25_scores_blocked_aligned(
+                        d_docs, d_tf, d_ni, d_plens,
+                        put(sb_a), put(lo_a), put(hi_a), *scan_args,
+                        n_docs=cap, n_blocks=nb,
+                    )
                     if phrase:
                         spans_a = put(self._phrase_spans(token_spans, n_surf))
                         # reference gate collection_read.py:1617-1619: the
-                        # windowed contract (K4) whenever the knob is on
-                        if self.cfg.phrase_windowed:
-                            dw, pw, tw, wb, ph_W, ph_wsub, pbits = (
-                                self._device.phrase_windowed_arrays(committed, cap)
-                            )
-                            boost_by_doc = bm25_ops.phrase_boost_docmajor_windowed(
-                                dw, pw, tw, wb, spans_a, field_boost,
-                                n_docs=cap, W=ph_W, wsub=ph_wsub, bits=pbits,
-                            )
-                        else:
-                            d_dev, p_dev, t_dev, bounds = (
-                                self._device.phrase_docmajor_arrays(committed, cap)
-                            )
-                            boost_by_doc = bm25_ops.phrase_boost_docmajor(
-                                d_dev, p_dev, t_dev, bounds, spans_a,
-                                field_boost, n_docs=cap,
-                            )
+                        # windowed contract (K4), always; K4 needs no
+                        # positions or windows once the bits are built
+                        dw, tw, pbits = self._device.phrase_stream_arrays(
+                            committed
+                        )
+                        boost_by_doc = bm25_ops.phrase_boost_docmajor_windowed(
+                            dw, None, tw, None, spans_a, field_boost,
+                            n_docs=cap, W=0, wsub=0, bits=pbits,
+                        )
                         raw = raw * boost_by_doc
                     if masked:
                         raw = raw * filter_mask
@@ -1100,14 +1049,13 @@ class CollectionReader:
         facets, few deletes, one embedding field with single-vector docs,
         committed-dominant. Returns that field id, or None for the general
         path. The reference's backend gate (collection_read.py:2847-2850)
-        is gone: this branch is taken on any device when the knob is on."""
+        is gone: this branch is taken on any device."""
         if (
             params.mode != SearchModeKind.VECTOR
             or params.facets
             or params.where
             # a small tombstone window is corrected host-side exactly
             or len(self.deleted) > 64
-            or not self.cfg.use_pallas
             # phase 2 gathers k*SUB rows per query: deep limits stay dense
             or params.limit > 128
         ):
@@ -1378,33 +1326,22 @@ class CollectionReader:
             p_len = [int(ts_host[hi] - ts_host[lo]) for lo, hi in token_spans]
 
         # reference gate collection_read.py:3284-3287: the aligned plan
-        # (K1) whenever the knob is on
-        bm25_pallas = self.cfg.bm25_pallas
-        ihost: List[np.ndarray] = []
-        if bm25_pallas:
-            need = bm25_ops.aligned_blocks_needed(p_len)
-            nb = bucket_pad(max(need, 1), bm25_ops.PLAN_BUCKETS)
-            ihost += list(bm25_ops.build_block_plan_aligned(p_lo, p_len, nb))
-        else:
-            need = sum((ln + bm25_ops.BLOCK - 1) // bm25_ops.BLOCK for ln in p_len)
-            nb = bucket_pad(max(need, 1), bm25_ops.PLAN_BUCKETS)
-            ihost += list(bm25_ops.build_block_plan(p_lo, p_len, nb))
+        # (K1), always
+        need = bm25_ops.aligned_blocks_needed(p_len)
+        nb = bucket_pad(max(need, 1), bm25_ops.PLAN_BUCKETS)
+        ihost: List[np.ndarray] = list(
+            bm25_ops.build_block_plan_aligned(p_lo, p_len, nb)
+        )
         d_docs, d_tf, d_ni, d_plens = self._device.string_arrays(committed)
 
-        ph_windowed = False
-        ph_W = ph_wsub = n_sp = 0
-        ph_docs = ph_poss = ph_terms = ph_bounds = ph_wbase = ph_bits = None
+        n_sp = 0
+        ph_docs = ph_terms = ph_bits = None
         if phrase:
             # reference gate collection_read.py:3310-3313: the windowed
-            # contract (K4) whenever the knob is on
-            if self.cfg.phrase_windowed:
-                (ph_docs, _pw, ph_terms, ph_wbase, ph_W, ph_wsub,
-                 ph_bits) = self._device.phrase_windowed_arrays(committed, cap)
-                ph_windowed = True
-            else:
-                ph_docs, ph_poss, ph_terms, ph_bounds = (
-                    self._device.phrase_docmajor_arrays(committed, cap)
-                )
+            # contract (K4), always; its window arguments go unused
+            ph_docs, ph_terms, ph_bits = self._device.phrase_stream_arrays(
+                committed
+            )
             spans_a = self._phrase_spans(token_spans, n_surf)
             n_sp = spans_a.shape[0]
             ihost.append(spans_a.reshape(-1))
@@ -1423,9 +1360,9 @@ class CollectionReader:
         fdev = (
             d_docs, d_tf, d_ni, d_plens,
             dense_rows if use_dense else None,
-            ph_docs, ph_poss, ph_terms, ph_bounds, ph_wbase, ph_bits,
+            ph_docs, None, ph_terms, None, None, ph_bits,
         )
-        fstat = (nb, phrase, use_dense, ph_windowed, ph_W, ph_wsub, n_sp, n_dsel)
+        fstat = (nb, phrase, use_dense, phrase, 0, 0, n_sp, n_dsel)
         return fdev, ihost, fhost, fstat, window_out
 
     def _search_hybrid_fused(
@@ -1606,8 +1543,8 @@ class CollectionReader:
             fusion="minmax" if params.fusion == HybridFusion.MINMAX else "rrf",
             filters=tuple(filter_statics), facets=tuple(facet_statics),
             # reference gate collection_read.py:3463-3465: the aligned
-            # plan (K1) whenever the knob is on, on any device
-            masked=masked, mode=mode, bm25_pallas=self.cfg.bm25_pallas,
+            # plan (K1), always, on any device
+            masked=masked, mode=mode, bm25_pallas=True,
             field_statics=tuple(field_statics), u_ft_n=u_ft_n,
             u_vec_n=u_vec_n, qdim=qdim, vmode="exact", v_statics=v_statics,
         )
@@ -1682,10 +1619,7 @@ class CollectionReader:
             c = sf.committed
             if c.n_terms:
                 self._device.string_arrays(c)
-                if self.cfg.phrase_windowed:
-                    self._device.phrase_windowed_arrays(c, cap)
-                else:
-                    self._device.phrase_docmajor_arrays(c, cap)
+                self._device.phrase_stream_arrays(c)
                 if sf.uncommitted.is_empty:
                     gi = c.global_info()
                     self._device.dense_term_rows(c, cap, gi.avgdl)

@@ -409,9 +409,10 @@ def phrase_boost_docmajor(docs, poss, terms, doc_bounds, spans, user_boost,
 
 
 # The reference's windowed reduction bins each _PH_PB-position block into a
-# commit-static doc window (Mosaic has no scatter). The port keeps the
-# window meta helper and the constants that shape its padding contract,
-# but K4 counts per doc directly and does not read the windows.
+# commit-static doc window (Mosaic has no scatter). The port keeps its host
+# helper and the constants that shape it, beside the reference's other
+# host helpers; nothing on the serving path calls it, because K4 counts
+# per doc directly and reads no windows.
 _PH_PB = 2048              # positions per stream block
 _PH_SUB = 16               # sub-runs per block
 _PH_SUBLEN = _PH_PB // _PH_SUB

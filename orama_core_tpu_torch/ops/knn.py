@@ -77,6 +77,9 @@ def subblock_max(vecs: torch.Tensor, queries: torch.Tensor, sub: int,
     if d % 8 or sub % 32 or n % sub:
         raise ValueError(f"K2 needs D % 8 == 0 and sub % 32 == 0 (D={d}, "
                          f"sub={sub}, N={n})")
+    if vecs.data_ptr() % 16:
+        raise ValueError("K2 reads the corpus in 16-byte chunks: vecs must "
+                         "start 16-byte aligned")
     bmax = torch.empty(n // sub, qn, dtype=torch.float32, device=vecs.device)
     bcnt = torch.empty(n // sub, qn, dtype=torch.int32, device=vecs.device)
     lib = _cuda.lib("knn_subblock_max")

@@ -293,6 +293,42 @@ def test_fast_knn_reader_matches(variant, monkeypatch):
     assert len(calls) == 3, "the port did not take the fused kNN branch"
 
 
+def test_kernel_knobs_gate_nothing(tmp_path, monkeypatch):
+    """use_pallas, bm25_pallas and phrase_windowed stay in GpuConfig only so
+    the reference's configs load: turned off, the port still serves through
+    K1's aligned plan, K4 and the fused kNN, with the same hits."""
+    from orama_core_tpu_torch.ops import bm25 as port_bm25
+
+    calls = {"bm25_scores_blocked_aligned": 0, "phrase_counts": 0}
+    for name in calls:
+        orig = getattr(port_bm25, name)
+
+        def spy(*a, _name=name, _orig=orig, **k):
+            calls[_name] += 1
+            return _orig(*a, **k)
+
+        monkeypatch.setattr(port_bm25, name, spy)
+    pair = Pair(tmp_path)
+    try:
+        pair.create()
+        pair.write(DOCS)
+        pair.commit()
+        cfg = pair.port.read_side._reader("c1").cfg
+        for knob in ("use_pallas", "bm25_pallas", "phrase_windowed"):
+            setattr(cfg, knob, False)
+        for body in ({"term": "cat"}, {"term": "dog cat"},
+                     {"term": "dog cat", "mode": "hybrid"}):
+            pair.compare(body)
+    finally:
+        pair.close()
+    assert calls["bm25_scores_blocked_aligned"] >= 3, calls
+    assert calls["phrase_counts"] >= 2, calls
+    _ref, port = _fast_readers()
+    port.cfg.use_pallas = False
+    body = {"term": "quantum", "mode": "vector"}
+    assert port._vector_fast_field(PortParams.from_json(body)) == 0
+
+
 def test_reference_data_dir_loads_into_port(tmp_path):
     """A data directory committed by orama_core_tpu.build_orama loads into
     orama_core_tpu_torch.build_orama, and searching it gives the same hits."""

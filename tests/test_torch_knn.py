@@ -132,15 +132,17 @@ def test_topk_stable_breaks_ties_toward_lower_index():
 
 
 @pytest.mark.gpu
-def test_kernels_match_plain_on_card():
-    """K2/K3 on the card against their plain versions (run on an H100;
-    chip_smoke.py checks them at the engine's real shapes)."""
+@pytest.mark.parametrize("d", [384, 768, 1024])
+def test_kernels_match_plain_on_card(d):
+    """K2/K3 on the card against their plain versions at the registry's
+    embedding widths (run on an H100; chip_smoke.py checks them at the
+    engine's real shapes)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     rng = np.random.default_rng(5)
-    v = torch.tensor(rng.standard_normal((65536, 384)), dtype=torch.bfloat16,
-                     device="cuda")
-    q = torch.tensor(rng.standard_normal((8, 384)), dtype=torch.bfloat16,
+    v = torch.tensor(rng.standard_normal((65536, d)) / np.sqrt(d),
+                     dtype=torch.bfloat16, device="cuda")
+    q = torch.tensor(rng.standard_normal((8, d)), dtype=torch.bfloat16,
                      device="cuda")
     bm, bc = port.subblock_max(v, q, 32, 60000)
     pm, pc = port.subblock_max_plain(v, q, 32, 60000)
