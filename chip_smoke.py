@@ -3,35 +3,47 @@
 
     python3 chip_smoke.py [--profile]
 
-Builds the port's four hand-written Hopper kernels from
-``orama_core_tpu_torch/csrc`` with nvcc (sm_90a), then runs, failing at the
-first phase that fails:
+Builds the port's six hand-written Hopper kernels from
+``orama_core_tpu_torch/csrc`` with nvcc (sm_90a, one process per source,
+all started together), then runs, failing at the first phase that fails:
 
 1. device: the card's name and power limit, capability (9, 0);
-2. a 1M-document collection at the shape of the repo's 1M serving setup
+2. three collections built straight from committed arrays onto the card:
+   the shape of the repo's 1M serving setup
    (``benchmarks/hybrid_1m_bench.py``, regenerated here from a seed:
    50,000 Zipf terms with df ~ rank^-0.9, ~20M postings with one position
-   each, 384-d unit vectors for ``fake-base``, a ``price`` number field)
-   built straight from committed arrays onto the card;
-3. each kernel against its plain torch version on that collection's
-   tensors (K1 over a ~1M-posting plan, K2 over the padded 4,194,304 x
+   each, 384-d unit vectors for ``fake-base``, a ``price`` number field),
+   served once with the exact (bf16) vector index and once with
+   ``vector_index="int8"``; and a chunked collection of 250,000 documents
+   of 1-7 384-d vector rows each (~1M rows, as long texts split at the
+   embedding model's 512-token budget give);
+3. each kernel against its plain torch version on those collections'
+   tensors (K1 over a ~1M-posting plan; K2 over the padded 4,194,304 x
    384 bf16 corpus with n_valid = 1,000,000 and Q = 8, and at D = 768 and
-   1024 on 262,144 rows, K3 on the rows K2 selects, K4 over the
-   ~20M-position phrase stream), timed with CUDA events, with the card's
-   least time for the same work beside it;
+   1024 on 262,144 rows; K3 on the rows K2 selects; K4 over the
+   ~20M-position phrase stream; K5 over the int8 codes of the same corpus
+   and at D = 768 and 1024; K6 over the chunked corpus at m_max = 8, and
+   at m_max = 64 on docs of up to 64 rows), timed with CUDA events, with
+   the card's least time for the same work beside it;
 4. the engine: 32 queries each of fulltext, phrase, hybrid RRF,
-   unfiltered vector (the fused kNN) and filtered + faceted vector, with
-   the launch counts reset before and read after each mode; one query per
-   mode is held against the same collection served on the CPU;
-5. the normal entry point: ``build_orama`` on ``cuda`` ingests 5,000
-   documents, commits, and every search mode is held against the same
-   data directory loaded by ``build_orama(device="cpu")``.
+   unfiltered vector (the fused kNN) and filtered + faceted vector on the
+   exact collection, unfiltered vector and hybrid RRF on the int8 one,
+   and unfiltered vector on the chunked one, with the launch counts reset
+   before and read after each mode; one query per mode is held against
+   the same collection served on the CPU;
+5. the normal entry point: ``build_orama`` on ``cuda`` ingests documents
+   and commits, three times (5,000 short documents with the exact index,
+   the same with the int8 index, and 2,600 documents longer than the
+   model's 512-token budget, whose chunk rows take K6), and every search
+   mode is held against the same data directory loaded by
+   ``build_orama(device="cpu")``.
 
 With ``--profile``, each engine mode is also traced with torch.profiler
-(device busy share, top ops by device time). The last two lines are the
-kernels' JSON record and
-``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
-non-zero and prints no result; nothing runs on the CPU in its place.
+(device busy share, top ops by device time and by host self time). The
+last three lines are the card's name and power limit, the kernels' JSON
+record and ``{"ok": true, "device": {...}}``. Without a CUDA device the
+script exits non-zero and prints no result; nothing runs on the CPU in
+its place.
 """
 
 from __future__ import annotations
@@ -49,6 +61,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_FLOPS = 989e12              # dense bf16 tensor-core peak
 F32_FLOPS = 67e12                # f32 outside the tensor cores
+INT8_OPS = 1979e12               # dense int8 tensor-core peak
 TPU_KERNELS = {
     "bm25_scan": ("orama_core_tpu_torch/csrc/bm25_scan.cu",
                   "orama_core_tpu/ops/bm25.py:324"),
@@ -58,6 +71,11 @@ TPU_KERNELS = {
                     "orama_core_tpu/ops/pallas_knn.py:226"),
     "phrase_counts": ("orama_core_tpu_torch/csrc/phrase_counts.cu",
                       "orama_core_tpu/ops/bm25.py:788"),
+    "knn_subblock_max_int8": (
+        "orama_core_tpu_torch/csrc/knn_subblock_max_int8.cu",
+        "orama_core_tpu/ops/pallas_knn.py:94"),
+    "knn_subblock_max_mv": ("orama_core_tpu_torch/csrc/knn_subblock_max_mv.cu",
+                            "orama_core_tpu/ops/pallas_knn.py:442"),
 }
 N_DOCS, N_TERMS, AVG_POSTINGS, DIM = 1_000_000, 50_000, 20, 384
 
@@ -141,11 +159,34 @@ def synth_arrays(n_docs=N_DOCS, n_terms=N_TERMS, avg_postings=AVG_POSTINGS,
     }
 
 
-def make_reader(arrays, device: str):
+def synth_multivec_arrays(n_docs=250_000, max_chunks=7, dim=DIM, seed=3):
+    """Committed arrays of a chunked collection, from a seed: each doc has
+    1..max_chunks unit vector rows, doc-ascending (the write path's
+    layout), for ``fake-base``."""
+    from orama_core_tpu_torch.index import CommittedVectorIndex
+
+    rng = np.random.default_rng(seed)
+    nch = rng.integers(1, max_chunks + 1, n_docs)
+    vec_docs = np.repeat(np.arange(n_docs, dtype=np.int32), nch)
+    vecs = rng.standard_normal((len(vec_docs), dim), dtype=np.float32)
+    vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
+    return {
+        "collection_id": "smoke_mv", "read_api_key": "rk",
+        "fields": [{"field_id": 0, "name": "embedding", "type": "embedding",
+                    "model": "fake-base"}],
+        "arrays": {"vector-0": CommittedVectorIndex(
+            dimension=dim, vecs=vecs, vec_docs=vec_docs).to_arrays()},
+        "alive": np.ones(n_docs, np.float32),
+        "doc_count": n_docs, "max_doc_id": n_docs - 1,
+    }
+
+
+def make_reader(arrays, device: str, vector_index: str = "exact"):
     from orama_core_tpu_torch.config import GpuConfig
     from orama_core_tpu_torch.engine.carry import reader_from_arrays
 
-    return reader_from_arrays(**arrays, gpu_cfg=GpuConfig(device=device))
+    return reader_from_arrays(**arrays, gpu_cfg=GpuConfig(
+        device=device, vector_index=vector_index))
 
 
 def zipf_term(rng, n_words=1, n_terms=N_TERMS) -> str:
@@ -372,9 +413,117 @@ def phase_kernels(reader, rng):
         bytes_moved=pp * 5 + heads * 4 + spans.numel() * 4 + cap * 8,
         ops=pp * 4 * spans.shape[0], peak_ops=F32_FLOPS))
     log(f"K4 ok: {pp} positions, exact, {ms:.4f} ms")
-    for rec in out:
-        print(json.dumps(rec), flush=True)
     return out
+
+
+def phase_kernels_int8_mv(reader8, reader_mv, rng):
+    """K5 and K6 against their plain versions on the int8 and chunked
+    collections' tensors."""
+    import torch
+
+    from orama_core_tpu_torch.ops import knn, quant
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    out = []
+    # K5: the int8 codes of the padded 1M x 384 corpus, Q = 8
+    c8 = reader8._vector[1].committed
+    codes, scales, _d, _v = reader8._device.vector_int8_arrays(c8)
+    n_valid, d = c8.n_vectors, codes.shape[1]
+    q = rng.standard_normal((8, d)).astype(np.float32)
+    q8, _ = quant.quantize_int8(torch.as_tensor(q, device="cuda"))
+    bm, bc = knn.subblock_max_int8(codes, scales, q8, 32, n_valid)
+    pm, pc = knn.subblock_max_int8_plain(codes, scales, q8, 32, n_valid)
+    torch.cuda.synchronize()
+    require(torch.equal(bm, pm) and torch.equal(bc, pc),
+            "K5 differs from its plain version (both sum exact integers)")
+    ms = time_ms(lambda: knn.subblock_max_int8(codes, scales, q8, 32,
+                                               n_valid), 20)
+    pms = time_ms(lambda: knn.subblock_max_int8_plain(codes, scales, q8, 32,
+                                                      n_valid), 3)
+    out.append(kernel_record(
+        "knn_subblock_max_int8", 0.0, ms, pms,
+        bytes_moved=n_valid * d + n_valid * 4 + 8 * d + bm.numel() * 8,
+        ops=2 * n_valid * d * 8, peak_ops=INT8_OPS))
+    log(f"K5 ok: {codes.shape[0]} rows, n_valid {n_valid}, exact, "
+        f"{ms:.4f} ms")
+    for width in (768, 1024):
+        vw = torch.randn(262_144, width, generator=gen, device="cuda")
+        cw, sw = quant.quantize_int8(vw / vw.norm(dim=1, keepdim=True))
+        qw, _ = quant.quantize_int8(
+            torch.randn(8, width, generator=gen, device="cuda"))
+        a = knn.subblock_max_int8(cw, sw, qw, 32, 250_000)
+        b = knn.subblock_max_int8_plain(cw, sw, qw, 32, 250_000)
+        torch.cuda.synchronize()
+        require(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+                f"K5 differs from its plain version at D={width}")
+        wms = time_ms(lambda: knn.subblock_max_int8(cw, sw, qw, 32, 250_000),
+                      10)
+        log(f"K5 ok at D={width}: 262,144 rows, n_valid 250,000, Q=8, "
+            f"exact, {wms:.4f} ms")
+        del vw, cw, a, b
+
+    # K6: the chunked corpus (1-7 rows per doc, m_max = 8), Q = 8
+    cm = reader_mv._vector[0].committed
+    vecs, row_docs, _v = reader_mv._device.vector_arrays(cm)
+    n_valid, d = cm.n_vectors, vecs.shape[1]
+    qd = torch.as_tensor(q / np.linalg.norm(q, axis=1, keepdims=True),
+                         device="cuda").to(torch.bfloat16)
+    err, nbad, ms = check_k6(vecs, row_docs, qd, n_valid, 8)
+    pms = time_ms(lambda: knn.subblock_max_mv_plain(
+        vecs, row_docs, qd, 32, n_valid, 8), 3)
+    out.append(kernel_record(
+        "knn_subblock_max_mv", err, ms, pms,
+        bytes_moved=(n_valid * d * 2 + n_valid * 4 + 8 * d * 2
+                     + (vecs.shape[0] // 32) * 8 * 8),
+        ops=2 * n_valid * d * 8, peak_ops=BF16_FLOPS))
+    log(f"K6 ok: {vecs.shape[0]} rows, n_valid {n_valid}, m_max 8, err "
+        f"{err:.3g}, {nbad} counts off at near-zero sims, {ms:.4f} ms")
+    # K6 at m_max = 64: 4,000 docs of 1-64 rows (~130k rows)
+    nch = rng.integers(1, 65, 4000)
+    docs64 = np.repeat(np.arange(4000, dtype=np.int32), nch)
+    v64 = torch.zeros(262_144, d, dtype=torch.bfloat16, device="cuda")
+    x = torch.randn(len(docs64), d, generator=gen, device="cuda")
+    v64[:len(docs64)] = (x / x.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+    rd64 = torch.zeros(262_144, dtype=torch.int32, device="cuda")
+    rd64[:len(docs64)] = torch.as_tensor(docs64, device="cuda")
+    err64, nbad64, ms64 = check_k6(v64, rd64, qd, len(docs64), 64)
+    log(f"K6 ok at m_max=64: {len(docs64)} rows of 4,000 docs, err "
+        f"{err64:.3g}, {nbad64} counts off at near-zero sims, {ms64:.4f} ms")
+    return out
+
+
+def check_k6(vecs, row_docs, qd, n_valid, m_max):
+    """K6 against its plain version: sums within rtol 1e-5 (f32 sums of
+    at most m_max non-negative terms, in another order), counts equal in
+    every sub-block whose rows and look-back rows hold no similarity
+    within 1e-5 of zero (whose sign may differ between the kernel's and
+    the matmul's order of summation). Returns (max abs err, counts off,
+    kernel ms)."""
+    import torch
+
+    from orama_core_tpu_torch.ops import knn
+
+    bm, bc = knn.subblock_max_mv(vecs, row_docs, qd, 32, n_valid, m_max)
+    pm, pc = knn.subblock_max_mv_plain(vecs, row_docs, qd, 32, n_valid, m_max)
+    torch.cuda.synchronize()
+    err = (bm - pm).abs().max().item()
+    require(torch.allclose(bm, pm, rtol=1e-5, atol=1e-6),
+            f"K6 sums disagree at m_max={m_max}: max err {err}")
+    sims = vector_sims(vecs, qd, n_valid)
+    near = torch.zeros(vecs.shape[0], qd.shape[0], device="cuda")
+    near[:n_valid] = (sims.abs() < 1e-5).float()
+    # a row's sign reaches the counts of the next m_max - 1 rows
+    near = torch.nn.functional.max_pool1d(
+        torch.nn.functional.pad(near.T[None], (m_max - 1, 0)), m_max, 1)[0].T
+    near = near.reshape(-1, 32, qd.shape[0]).amax(dim=1) > 0
+    nbad = int((bc != pc).sum())
+    bad = int(((bc != pc) & ~near).sum())
+    require(bad == 0, f"K6 counts disagree in {bad} sub-blocks with no "
+            "near-zero similarity")
+    require(int(bc.sum()) > 0 and float(bm.max()) > 0, "K6 found nothing")
+    ms = time_ms(lambda: knn.subblock_max_mv(vecs, row_docs, qd, 32, n_valid,
+                                             m_max), 20)
+    return err, nbad, ms
 
 
 def vector_sims(vecs, qd, n_valid):
@@ -383,16 +532,19 @@ def vector_sims(vecs, qd, n_valid):
     return sims_f32(vecs[:n_valid], qd)
 
 
-MODES = {
-    "fulltext": ("fulltext", 1, {}),
-    "phrase": ("fulltext", 2, {}),
-    "hybrid_rrf": ("hybrid", 1, {}),
-    "vector": ("vector", 1, {}),
-    "vector_filtered": ("vector", 1, {
+MODES = {  # mode: (collection, search mode, query words, extra params)
+    "fulltext": ("exact", "fulltext", 1, {}),
+    "phrase": ("exact", "fulltext", 2, {}),
+    "hybrid_rrf": ("exact", "hybrid", 1, {}),
+    "vector": ("exact", "vector", 1, {}),
+    "vector_filtered": ("exact", "vector", 1, {
         "where": {"price": {"between": [20, 60]}},
         "facets": {"price": {"ranges": [{"from": 0, "to": 25},
                                         {"from": 25, "to": 50}]}},
     }),
+    "vector_int8": ("int8", "vector", 1, {}),
+    "hybrid_int8": ("int8", "hybrid", 1, {}),
+    "vector_multivec": ("chunked", "vector", 1, {}),
 }
 EXPECT = {  # kernels each mode must launch
     "fulltext": ("bm25_scan",),
@@ -400,10 +552,14 @@ EXPECT = {  # kernels each mode must launch
     "hybrid_rrf": ("bm25_scan",),
     "vector": ("knn_subblock_max", "knn_rescore"),
     "vector_filtered": (),
+    "vector_int8": ("knn_subblock_max_int8",),
+    "hybrid_int8": ("bm25_scan",),
+    "vector_multivec": ("knn_subblock_max_mv",),
 }
 
 
-def phase_engine(reader, cpu_reader, rng, n_queries=32):
+def phase_engine(readers, rng, n_queries=32):
+    """``readers``: collection name -> (card reader, CPU reader)."""
     from orama_core_tpu_torch.models.ai_service import AIService
     from orama_core_tpu_torch.ops import _cuda
     from orama_core_tpu_torch.types import SearchParams
@@ -411,7 +567,8 @@ def phase_engine(reader, cpu_reader, rng, n_queries=32):
     ai = AIService()
     totals = {k: 0 for k in _cuda.LAUNCHES}
     p50 = {}
-    for mode, (kind, n_words, extra) in MODES.items():
+    for mode, (coll, kind, n_words, extra) in MODES.items():
+        reader, cpu_reader = readers[coll]
         bodies = [dict(term=zipf_term(rng, n_words), mode=kind, **extra)
                   for _ in range(n_queries + 4)]
         for body in bodies[:4]:  # first-use allocations
@@ -441,7 +598,7 @@ def phase_engine(reader, cpu_reader, rng, n_queries=32):
         got, got_n, got_f = reader.search(p, ai)
         want, want_n, want_f = cpu_reader.search(p, ai)
         check_hits(got, want, 1e-4, f"{mode} vs CPU")
-        if kind == "vector":
+        if kind == "vector" and coll != "int8":
             # a similarity within rounding of zero may change sign with
             # the order of summation: allow that many flips in the count
             require(abs(got_n - want_n) <= 2, f"{mode}: count {got_n} vs {want_n}")
@@ -465,10 +622,11 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def phase_profile(reader, rng, n_queries=16):
+def phase_profile(readers, rng, n_queries=16):
     """Optional (``--profile``): per mode, the device's busy share of the
-    wall time and the ops that take the most device time, from
-    torch.profiler over a steady window of queries."""
+    wall time and the ops that take the most device and host time, from
+    torch.profiler over a steady window of queries. ``readers``:
+    collection name -> card reader."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -476,7 +634,8 @@ def phase_profile(reader, rng, n_queries=16):
     from orama_core_tpu_torch.types import SearchParams
 
     ai = AIService()
-    for mode, (kind, n_words, extra) in MODES.items():
+    for mode, (coll, kind, n_words, extra) in MODES.items():
+        reader = readers[coll]
         params = [SearchParams.from_json(
             dict(term=zipf_term(rng, n_words), mode=kind, **extra))
             for _ in range(n_queries)]
@@ -497,6 +656,9 @@ def phase_profile(reader, rng, n_queries=16):
             if _device_us(e) > 0:
                 by_name[e.key[:60]] = by_name.get(e.key[:60], 0.0) + _device_us(e)
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        # host side: the torch ops whose own CPU time is largest
+        host = sorted(((e.key[:60], e.self_cpu_time_total) for e in evts
+                       if _device_us(e) == 0), key=lambda kv: -kv[1])[:6]
         print(json.dumps({
             "profile": mode, "queries": n_queries,
             "wall_ms_per_query": wall_us / n_queries / 1e3,
@@ -505,6 +667,9 @@ def phase_profile(reader, rng, n_queries=16):
             "top_device_ms_per_query": {
                 name: us / n_queries / 1e3 for name, us in top
             },
+            "top_host_self_ms_per_query": {
+                name: us / n_queries / 1e3 for name, us in host
+            },
         }), flush=True)
 
 
@@ -512,12 +677,50 @@ def _facets(f):
     return None if f is None else {k: (v.count, v.values) for k, v in f.items()}
 
 
-def phase_build_orama(n_docs=5000, seed=7, device="cuda"):
+def _short_docs(rng, n_docs, vocab, zipf):
+    return [{
+        "id": str(i),
+        "title": " ".join(rng.choice(vocab, 3, p=zipf)),
+        "body": " ".join(rng.choice(vocab, int(rng.integers(5, 30)), p=zipf)),
+        "price": float(rng.uniform(0, 100)),
+    } for i in range(n_docs)]
+
+
+def _long_docs(rng, n_docs, vocab, zipf):
+    """Documents of 30-80 sentences of nine 16-character words (4 tokens
+    each, 1,080-2,880 tokens): longer than the embedding model's 512-token
+    budget, so the write path splits each into 3-6 chunks, one vector row
+    each. The words keep the short vocabulary as prefixes."""
+    lvocab = [w + "x" * (16 - len(w)) for w in vocab]
+    n_sent = rng.integers(30, 81, n_docs)
+    words = rng.choice(len(vocab), (int(n_sent.sum()), 9), p=zipf)
+    sents = [" ".join(lvocab[w] for w in row) + "." for row in words]
+    bounds = np.concatenate([[0], np.cumsum(n_sent)])
+    return [{
+        "id": str(i),
+        "title": " ".join(rng.choice(vocab, 3, p=zipf)),
+        "body": " ".join(sents[bounds[i]:bounds[i + 1]]),
+        "price": float(rng.uniform(0, 100)),
+    } for i in range(n_docs)]
+
+
+BUILD_PASSES = {  # name: (vector_index, docs, n_docs, kernels the pass runs)
+    "exact": ("exact", _short_docs, 5000, ("knn_subblock_max",)),
+    "int8": ("int8", _short_docs, 5000, ("knn_subblock_max_int8",)),
+    # > 8,192 rows, so a limit-10 query's 16 x 4 candidate sub-blocks of
+    # 32 rows (x 4) stay below the corpus and K6 runs, not the dense branch
+    "chunked": ("exact", _long_docs, 2600, ("knn_subblock_max_mv",)),
+}
+
+
+def phase_build_orama(name, seed=7, device="cuda"):
     """The normal entry point on the card against the CPU on one data dir."""
     from orama_core_tpu_torch import build_orama
     from orama_core_tpu_torch.config import OramaxConfig
+    from orama_core_tpu_torch.ops import _cuda
     from orama_core_tpu_torch.types import SearchParams
 
+    vector_index, make_docs, n_docs, expect = BUILD_PASSES[name]
     work = os.path.join(ROOT, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
 
@@ -526,23 +729,23 @@ def phase_build_orama(n_docs=5000, seed=7, device="cuda"):
         c.writer_side.data_dir = os.path.join(work, "w")
         c.reader_side.data_dir = os.path.join(work, "r")
         c.ai.backend = "fake"
+        c.gpu.vector_index = vector_index
         return c
 
     rng = np.random.default_rng(seed)
     vocab = [f"w{i}" for i in range(400)]
     zipf = 1.0 / np.arange(1, 401) ** 0.8
     zipf /= zipf.sum()
-    docs = [{
-        "id": str(i),
-        "title": " ".join(rng.choice(vocab, 3, p=zipf)),
-        "body": " ".join(rng.choice(vocab, int(rng.integers(5, 30)), p=zipf)),
-        "price": float(rng.uniform(0, 100)),
-    } for i in range(n_docs)]
+    docs = make_docs(rng, n_docs, vocab, zipf)
+    t0 = time.perf_counter()
     gpu = build_orama(cfg(), start_background=False, device=device)
     gpu.write_side.create_collection("master", "c", read_api_key="r",
-                                     write_api_key="w")
+                                     write_api_key="w",
+                                     embedding_model="fake-base")
     gpu.flush()
-    gpu.write_side.write("c", docs, "w")
+    for lo in range(0, len(docs), 500):  # within the embedding queue's bound
+        gpu.write_side.write("c", docs[lo:lo + 500], "w")
+        gpu.flush()
     gpu.commit()
     cpu = build_orama(cfg(), start_background=False, device="cpu")
     reader = gpu.read_side._reader("c")
@@ -557,25 +760,35 @@ def phase_build_orama(n_docs=5000, seed=7, device="cuda"):
         {"term": "w1", "where": {"price": {"gte": 30}}, "limit": 50},
     ]
     require(reader._vector_fast_field(SearchParams.from_json(bodies[3]))
-            is not None, "the fused kNN did not qualify")
+            is not None, f"{name}: the fused kNN did not qualify")
+    committed = next(iter(reader._vector.values())).committed
+    if name == "chunked":
+        require(committed.n_vectors >= 4096
+                and not committed._single_vec_per_doc,
+                f"chunked: {committed.n_vectors} rows of single-vector docs")
+    _cuda.reset_launches()
     try:
         for body in bodies:
             g = gpu.read_side.search("c", SearchParams.from_json(body), "r")
             c_ = cpu.read_side.search("c", SearchParams.from_json(body), "r")
             check_hits([(h.id, h.score) for h in g.hits],
                        [(h.id, h.score) for h in c_.hits], 1e-4,
-                       f"build_orama {body}")
-            if body.get("mode") == "vector":
+                       f"build_orama {name} {body}")
+            if body.get("mode") == "vector" and vector_index == "exact":
                 require(abs(g.count - c_.count) <= 2, f"{body}: counts")
             else:
                 require(g.count == c_.count, f"{body}: counts")
             require(g.count > 0, f"{body}: no hits")
             require(_facets(g.facets) == _facets(c_.facets), f"{body}: facets")
+        for k in expect:
+            require(_cuda.LAUNCHES[k] > 0, f"build_orama {name}: {k} never ran")
     finally:
         gpu.close()
         cpu.close()
         shutil.rmtree(work, ignore_errors=True)
-    log(f"build_orama: {len(bodies)} queries equal on cuda and cpu")
+    log(f"build_orama {name}: {n_docs} docs, {committed.n_vectors} vector "
+        f"rows, {len(bodies)} queries equal on cuda and cpu "
+        f"({time.perf_counter() - t0:.1f} s)")
 
 
 def main() -> int:
@@ -601,22 +814,41 @@ def main() -> int:
 
     t0 = time.perf_counter()
     arrays = synth_arrays()
-    reader = make_reader(arrays, "cuda")
-    reader.warmup()
-    torch.cuda.synchronize()
-    log(f"1M collection on the card in {time.perf_counter() - t0:.1f} s, "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    mv_arrays = synth_multivec_arrays()
+    log(f"data made in {time.perf_counter() - t0:.1f} s")
+    collections = {
+        "exact": (arrays, "exact"),
+        "int8": (arrays, "int8"),
+        "chunked": (mv_arrays, "exact"),
+    }
+    readers = {}
+    for name, (arr, index) in collections.items():
+        t0 = time.perf_counter()
+        before = torch.cuda.memory_allocated()
+        reader = make_reader(arr, "cuda", index)
+        reader.warmup()
+        torch.cuda.synchronize()
+        log(f"{name} collection on the card in "
+            f"{time.perf_counter() - t0:.1f} s, "
+            f"{(torch.cuda.memory_allocated() - before) / 2**30:.2f} GiB")
+        readers[name] = reader
     rng = np.random.default_rng(42)
-    records = phase_kernels(reader, rng)
-    cpu_reader = make_reader(arrays, "cpu")
-    p50, launches = phase_engine(reader, cpu_reader, rng)
-    del cpu_reader
+    records = phase_kernels(readers["exact"], rng)
+    records += phase_kernels_int8_mv(readers["int8"], readers["chunked"], rng)
+    for rec in records:
+        print(json.dumps(rec), flush=True)
+    pairs = {name: (readers[name], make_reader(arr, "cpu", index))
+             for name, (arr, index) in collections.items()}
+    p50, launches = phase_engine(pairs, rng)
+    del pairs
     if "--profile" in sys.argv[1:]:
-        phase_profile(reader, rng)
+        phase_profile(readers, rng)
     for rec in records:
         rec["launches"] = launches[rec["name"]]
         require(rec["launches"] > 0, f"{rec['name']} never ran on the main path")
-    phase_build_orama()
+    del readers
+    for name in BUILD_PASSES:
+        phase_build_orama(name)
     print(json.dumps({"p50_ms": p50, "card": card}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": records}), flush=True)

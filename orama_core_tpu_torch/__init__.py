@@ -4,8 +4,9 @@ Port of ``orama_core_tpu`` (the JAX/TPU package, which stays the
 reference) to one NVIDIA H100: full-text BM25, phrase, vector and hybrid
 search with filters and facets, over committed indexes kept on the card.
 The host side (op log, write side, indexes, tokenizer, storage) is the
-reference's code; the scoring core is torch plus four hand-written Hopper
-kernels (``csrc/``).
+reference's code; the scoring core is torch plus six hand-written Hopper
+kernels (``csrc/``). Vector fields serve exact (bf16) or int8 indexes
+(``cfg.gpu.vector_index = "int8"``), with single- or multi-vector docs.
 
 ``build_orama(...)`` assembles the engine as the reference does
 (`lib.rs:65-160`): AI service + write side + read side on one op channel,
@@ -16,8 +17,8 @@ card to the CPU.
 
 Not in this slice (each raises ``NotImplementedError``): a gRPC model
 sidecar (``ai.grpc_port``), a remote model backend (``ai.remote_url``),
-query micro-batching, hooks, the jax encoder/LLM backend, int8 and IVF/PQ
-vector indexes, and mesh sharding.
+query micro-batching, hooks, the jax encoder/LLM backend, IVF/PQ vector
+indexes, and mesh sharding.
 """
 
 from __future__ import annotations

@@ -141,12 +141,16 @@ class GpuConfig:
     # use_pallas, bm25_pallas and phrase_windowed are the reference's
     # kernel-branch knobs, kept so its configs load. They gate nothing:
     # the port always serves unfiltered vector queries with the fused kNN
-    # (ops/knn.py, K2 + K3), scans postings over the aligned plan (K1) and
-    # counts phrases with K4.
+    # (ops/knn.py: K2 + K3, K5 for int8, K6 for chunked docs), scans
+    # postings over the aligned plan (K1) and counts phrases with K4.
     use_pallas: bool = True
-    # Vector scoring path: only "exact" (bf16 matmul) is ported; the
-    # others raise NotImplementedError at commit/search
+    # Vector scoring path: "exact" (bf16 rows) or "int8" (the capacity
+    # mode: int8 codes + per-row scales, half the bytes of bf16); "ivf",
+    # "pq" and "ivf_pq" raise NotImplementedError (a later slice)
     vector_index: str = "exact"
+    # The reference's int8 phase-1 choice ("xla" = its XLA int8 matmul,
+    # "pallas" = its in-kernel dot), kept so its configs load. It gates
+    # nothing: K5 (csrc/knn_subblock_max_int8.cu) serves both values.
     int8_phase1: str = "xla"
     bm25_pallas: bool = True
     # Dense per-term score rows for Zipf-head terms (ops/bm25.py)

@@ -17,10 +17,11 @@ wrapper launches its CUDA kernel for CUDA tensors and runs its plain torch
 version for CPU tensors, so the CPU tests drive the same orchestration as
 the card, and no CUDA tensor is sent around a kernel.
 
-Left out of this slice (each raises or is absent): the sharded/mesh
-branches, ``search_batch`` and the batched fused program, int8, IVF/PQ and
-the multi-vector fast kernel (multi-vector docs are served exactly by the
-dense path).
+``GpuConfig.vector_index`` "exact" (bf16 rows) and "int8" (the capacity
+mode: int8 codes and per-row scales, K5) are served; multi-vector
+(chunked) docs of an exact index take the segment-aware fused kNN (K6).
+Left out (each raises or is absent): the sharded/mesh branches,
+``search_batch`` and the batched fused program, and IVF/PQ.
 """
 
 from __future__ import annotations
@@ -111,6 +112,23 @@ def expanded_spans(term_dict, tokens: List[str], stems: List[str]):
         if tid is not None and not any(lo <= tid < hi for lo, hi in spans):
             spans.append((tid, tid + 1))
     return spans, n_surface
+
+
+_MULTIVEC_FAST_MAX_CHUNKS = 64
+
+
+def _multivec_fast_eligible(c) -> bool:
+    """Fast-path gate for multi-vector committed layouts: chunk rows must
+    be doc-ascending (contiguous per doc) and a doc's fan-out bounded (K6
+    looks back at most m_max - 1 rows; the exact rescore gathers [k*over,
+    m_max] rows per query). Probed once per committed generation and
+    cached on the immutable index."""
+    asc = getattr(c, "_docs_ascending", None)
+    if asc is None:
+        asc = bool(np.all(np.diff(c.vec_docs) >= 0))
+        c._docs_ascending = asc
+        c._max_chunks = int(np.bincount(c.vec_docs).max()) if asc else 0
+    return asc and c._max_chunks <= _MULTIVEC_FAST_MAX_CHUNKS
 
 
 def _vec_docs_identity(c) -> bool:
@@ -291,6 +309,58 @@ class _DeviceCache:
         n = v.n_vectors
         return tuple(a[:n] for a in self.vector_arrays(v))
 
+    def vector_rowstarts(self, v: CommittedVectorIndex, cap: int):
+        """Doc -> row-range CSR (int32[cap+1]) for the multi-vector fused
+        kNN's exact rescore; valid only for doc-ascending row layouts."""
+
+        def build():
+            counts = np.bincount(v.vec_docs, minlength=cap)
+            starts = np.zeros(cap + 1, np.int64)
+            np.cumsum(counts, out=starts[1:])
+            return self.put(starts.astype(np.int32))
+
+        return self._get(v, ("vec_rowstarts", cap), build)
+
+    def vector_int8_arrays(self, v: CommittedVectorIndex):
+        """(codes int8[p_pad, D], scales f32[p_pad], vec_docs i32, vec_valid
+        f32): the int8 capacity layout. Only the real rows are quantized,
+        on the device, a chunk at a time; the pad rows are written there as
+        the reference's quantization of a zero row (codes 0, scale
+        1e-9/127), so no padded f32 host copy is ever built."""
+
+        def build():
+            from ..ops.quant import quantize_int8
+
+            steps = self.cfg.posting_bucket_steps
+            p = v.n_vectors
+            p_pad = bucket_pad(max(p, 1), steps)
+            codes = torch.zeros(p_pad, v.dimension, dtype=torch.int8,
+                                device=self.device)
+            scales = torch.empty(p_pad, dtype=torch.float32,
+                                 device=self.device)
+            chunk = 1 << 18
+            for lo in range(0, p, chunk):
+                hi = min(lo + chunk, p)
+                c8, sc = quantize_int8(self.put(
+                    np.asarray(v.vecs[lo:hi], np.float32)))
+                codes[lo:hi] = c8
+                scales[lo:hi] = sc
+            scales[p:] = quantize_int8(
+                torch.zeros(1, v.dimension, device=self.device))[1]
+            docs = np.zeros(p_pad, np.int32)
+            docs[:p] = v.vec_docs
+            valid = np.zeros(p_pad, np.float32)
+            valid[:p] = 1.0
+            return codes, scales, self.put(docs), self.put(valid)
+
+        return self._get(v, "vec_int8", build)
+
+    def vector_int8_rows(self, v: CommittedVectorIndex):
+        """``vector_int8_arrays`` without the bucket padding: the dense
+        int8 product reads only real rows."""
+        n = v.n_vectors
+        return tuple(a[:n] for a in self.vector_int8_arrays(v))
+
     # number -----------------------------------------------------------------
 
     def number_arrays(self, nidx: CommittedNumberIndex):
@@ -407,10 +477,10 @@ class CollectionReader:
         self.description = description
         self.default_locale = default_locale
         self.cfg = gpu_cfg or GpuConfig()
-        if self.cfg.vector_index != "exact":
+        if self.cfg.vector_index not in ("exact", "int8"):
             raise NotImplementedError(
-                f"vector_index={self.cfg.vector_index!r}: int8 and IVF/PQ "
-                "are a later port slice"
+                f"vector_index={self.cfg.vector_index!r}: IVF/PQ are a "
+                "later port slice"
             )
         if self.cfg.mesh_shape:
             raise NotImplementedError("mesh_shape: sharded serving is a "
@@ -983,7 +1053,9 @@ class CollectionReader:
             for fid in fids:
                 vf = self._vector[fid]
                 if not vf.committed.is_empty:
-                    if cand is not None:
+                    # the selective gather scores bf16 rows: the int8 mode
+                    # keeps only its codes on the card, so it stays dense
+                    if cand is not None and self.cfg.vector_index == "exact":
                         from ..server import metrics as m
 
                         m.VECTOR_PATH.inc(path="selective")
@@ -991,10 +1063,8 @@ class CollectionReader:
                             vf.committed, q_dev, cand, cap
                         )
                     else:
-                        vecs, docs, valid = self._device.vector_rows(vf.committed)
-                        scores = scores + vector_ops.brute_force_scores(
-                            vecs, docs, valid, q_dev, filter_mask, n_docs=cap,
-                            identity=_vec_docs_identity(vf.committed),
+                        scores = scores + self._committed_vector_scores(
+                            vf.committed, q_dev, filter_mask, cap
                         )
                 if not vf.uncommitted.is_empty:
                     if fm_host is None:
@@ -1012,6 +1082,24 @@ class CollectionReader:
                 f"embedding fields have {dims}"
             )
         return scores
+
+    def _committed_vector_scores(self, committed, q_dev: torch.Tensor,
+                                 filter_mask: torch.Tensor,
+                                 cap: int) -> torch.Tensor:
+        """Dense committed vector scores: int8 product | exact bf16 product
+        (reference ``_committed_vector_scores``)."""
+        if self.cfg.vector_index == "int8":
+            from ..ops.quant import int8_brute_force_scores
+
+            codes, scales, docs, valid = self._device.vector_int8_rows(committed)
+            return int8_brute_force_scores(
+                codes, scales, docs, valid, q_dev, filter_mask, n_docs=cap
+            )
+        vecs, docs, valid = self._device.vector_rows(committed)
+        return vector_ops.brute_force_scores(
+            vecs, docs, valid, q_dev, filter_mask, n_docs=cap,
+            identity=_vec_docs_identity(committed),
+        )
 
     # -- search entry (reference: collection.rs:684-781) ----------------------
 
@@ -1041,15 +1129,18 @@ class CollectionReader:
             return fusion_ops.minmax_fuse(ft, vec)
         return fusion_ops.rrf_fuse(ft, vec)
 
-    # -- fused kNN (K2 + K3) ----------------------------------------------------
+    # -- fused kNN (K2 + K3 | K5 | K6) -----------------------------------------
 
     def _vector_fast_field(self, params: SearchParams) -> Optional[int]:
         """The fused kNN (ops/knn.py) serves a query directly when nothing
         downstream needs dense scores: pure vector mode, no filters or
-        facets, few deletes, one embedding field with single-vector docs,
-        committed-dominant. Returns that field id, or None for the general
-        path. The reference's backend gate (collection_read.py:2847-2850)
-        is gone: this branch is taken on any device."""
+        facets, few deletes, one embedding field, committed-dominant.
+        Single-vector docs take K2 + K3 (exact) or K5 (int8); multi-vector
+        (chunked) docs take K6, exact mode only, when their rows are
+        doc-ascending with at most 64 per doc. Returns that field id, or
+        None for the general path. The reference's backend gate
+        (collection_read.py:2847-2850) is gone: this branch is taken on any
+        device, whatever ``use_pallas`` says."""
         if (
             params.mode != SearchModeKind.VECTOR
             or params.facets
@@ -1076,22 +1167,31 @@ class CollectionReader:
         if single is None:
             single = len(np.unique(c.vec_docs)) == c.n_vectors
             c._single_vec_per_doc = single
-        # multi-vector (chunked) docs need the segment-aware kernel, a
-        # later slice; the dense path serves them exactly
-        return emb[0] if single else None
+        if single:
+            return emb[0]
+        # multi-vector docs: K6 has no int8 variant, as in the reference
+        if self.cfg.vector_index != "exact":
+            return None
+        return emb[0] if _multivec_fast_eligible(c) else None
 
     def _vector_topk_fast_core(
         self, params_list: List[SearchParams], fid: int, qn: np.ndarray
     ) -> List[Tuple[List[Tuple[int, float]], int]]:
         """Fused-kNN serving of qn [B, D] normalized queries aligned with
         params_list, with the host tombstone and freshness-window merges."""
-        from ..ops.knn import knn_topk_with_count
+        from ..ops import knn as knn_ops
 
         # capture the field container ONCE (commit swaps it atomically)
         vfield = self._vector[fid]
         c = vfield.committed
-        vecs_dev, _rowdocs, _ = self._device.vector_arrays(c)
-        p_pad = vecs_dev.shape[0]
+        use_int8 = self.cfg.vector_index == "int8"
+        multivec = not c._single_vec_per_doc
+        if use_int8:
+            codes_dev, scales_dev, _, _ = self._device.vector_int8_arrays(c)
+            p_pad = codes_dev.shape[0]
+        else:
+            vecs_dev, rowdocs_dev, _ = self._device.vector_arrays(c)
+            p_pad = vecs_dev.shape[0]
         bn = 2048
         while p_pad % bn:
             bn //= 2
@@ -1104,10 +1204,30 @@ class CollectionReader:
         # never underfill the requested limit
         want = limit + len(self.deleted)
         k = 16 if want <= 16 else min(bucket_pad(want, (16, 128, 1024)), c.n_vectors)
-        vals_t, rows_t, count_t = knn_topk_with_count(
-            vecs_dev, self._device.put(qb).to(vecs_dev.dtype),
-            k=min(k, c.n_vectors), block_rows=bn, n_valid=c.n_vectors,
-        )
+        k = min(k, c.n_vectors)
+        q_dev = self._device.put(qb)
+        if multivec:
+            # rows aggregate by doc in the kernel (sum of relu cos, the
+            # dense scorer's semantics); ids come back as DOC ids
+            m_max = 1 << max(0, int(np.ceil(np.log2(c._max_chunks))))
+            vals_t, rows_t, count_t = knn_ops.knn_topk_multivec_with_count(
+                vecs_dev, rowdocs_dev,
+                self._device.vector_rowstarts(c, self.capacity),
+                q_dev.to(vecs_dev.dtype), k=k, block_rows=bn, m_max=m_max,
+                n_valid=c.n_vectors, n_docs=self.capacity,
+            )
+        elif use_int8:
+            # the quantized cosines, as the int8 dense scorer gives them.
+            # int8_phase1 gates nothing: K5 serves "xla" and "pallas" alike
+            vals_t, rows_t, count_t = knn_ops.knn_topk_int8_with_count(
+                codes_dev, scales_dev, q_dev, k=k, block_rows=bn,
+                n_valid=c.n_vectors,
+            )
+        else:
+            vals_t, rows_t, count_t = knn_ops.knn_topk_with_count(
+                vecs_dev, q_dev.to(vecs_dev.dtype), k=k, block_rows=bn,
+                n_valid=c.n_vectors,
+            )
         vals, rows, count = _to_host(vals_t), _to_host(rows_t), _to_host(count_t)
         unc = vfield.uncommitted
         deleted = self.deleted
@@ -1126,15 +1246,27 @@ class CollectionReader:
                     del_rows.append((dd, c.vecs[order[j:j2]]))
         out = []
         for r, p in enumerate(params_list):
-            docs = c.vec_docs[rows[r]]
+            docs = rows[r] if multivec else c.vec_docs[rows[r]]
             ranked = [
                 (int(d), float(s))
                 for d, s in zip(docs, vals[r])
                 if s > 0.0 and int(d) not in deleted
             ][: p.limit]
             n_match = int(count[r])
+            if del_rows and use_int8:
+                # the kernel counted positive QUANTIZED sims: replay its
+                # arithmetic, so a doc whose float and quantized sims
+                # differ in sign near zero still corrects the count exactly
+                q_scale = max(float(np.max(np.abs(qn[r]))), 1e-9) / 127.0
+                q8 = np.clip(np.round(qn[r] / q_scale), -127, 127)
             for dd, vm in del_rows:  # vm: [rows_of_doc, D]
-                if float(np.max(vm @ qn[r])) > 0.0:
+                if use_int8:
+                    v_scale = np.maximum(np.abs(vm).max(axis=1), 1e-9) / 127.0
+                    v8 = np.clip(np.round(vm / v_scale[:, None]), -127, 127)
+                    sims_d = v8 @ q8
+                else:
+                    sims_d = vm @ qn[r]
+                if float(np.max(sims_d)) > 0.0:
                     n_match -= 1
             if not unc.is_empty:
                 # freshness-window overlay: host-score the window and merge
@@ -1365,6 +1497,17 @@ class CollectionReader:
         fstat = (nb, phrase, use_dense, phrase, 0, 0, n_sp, n_dsel)
         return fdev, ihost, fhost, fstat, window_out
 
+    def _fused_vector_args(self, committed):
+        """Committed vector operands of the fused program, mirroring
+        ``_committed_vector_scores``' dispatch: (vmode, v_statics, v_ann,
+        (vecs, vec_docs, vec_valid)), the exact triple None-filled for
+        int8."""
+        if self.cfg.vector_index == "int8":
+            return ("int8", (), self._device.vector_int8_rows(committed),
+                    (None, None, None))
+        return ("exact", (_vec_docs_identity(committed),), None,
+                self._device.vector_rows(committed))
+
     def _search_hybrid_fused(
         self,
         params: SearchParams,
@@ -1399,7 +1542,7 @@ class CollectionReader:
 
         u_vec_out: Dict[int, float] = {}
         qn = None
-        v_statics: Tuple = ()
+        vmode, v_statics, v_ann = "exact", (), None
         if vfid is not None:
             vf = self._vector[vfid]
             raw_vec = params.vector if mode == "vector" else None
@@ -1408,8 +1551,9 @@ class CollectionReader:
                     f"query vector has dimension {len(raw_vec)}; collection "
                     f"embedding fields have [{vf.committed.dimension}]"
                 )
-            v_statics = (_vec_docs_identity(vf.committed),)
-            vecs, vec_docs, vec_valid = self._device.vector_rows(vf.committed)
+            vmode, v_statics, v_ann, (vecs, vec_docs, vec_valid) = (
+                self._fused_vector_args(vf.committed)
+            )
             qn = self._resolve_query_vec(
                 self.fields[vfid].model, params.term, ai_service, raw_vec
             )
@@ -1546,7 +1690,8 @@ class CollectionReader:
             # plan (K1), always, on any device
             masked=masked, mode=mode, bm25_pallas=True,
             field_statics=tuple(field_statics), u_ft_n=u_ft_n,
-            u_vec_n=u_vec_n, qdim=qdim, vmode="exact", v_statics=v_statics,
+            u_vec_n=u_vec_n, qdim=qdim, vmode=vmode, v_statics=v_statics,
+            v_ann=v_ann,
         )
         vals, idx = _to_host(vals_t), _to_host(idx_t)
         count = int(count_t)
@@ -1626,7 +1771,10 @@ class CollectionReader:
                 n += 1
         for vf in self._vector.values():
             if not vf.committed.is_empty:
-                self._device.vector_arrays(vf.committed)
+                if self.cfg.vector_index == "int8":
+                    self._device.vector_int8_arrays(vf.committed)
+                else:
+                    self._device.vector_arrays(vf.committed)
                 n += 1
         for nf in self._number.values():
             self._device.number_arrays(nf.committed)

@@ -44,6 +44,8 @@ LAUNCHES: Dict[str, int] = {
     "knn_subblock_max": 0,
     "knn_rescore": 0,
     "phrase_counts": 0,
+    "knn_subblock_max_int8": 0,
+    "knn_subblock_max_mv": 0,
 }
 
 _lock = threading.Lock()
@@ -68,6 +70,15 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "phrase_counts": {
         # bits, terms, docs, spans, any, seq, pp, n_spans, n_docs, stream
         "phrase_counts": [_P] * 6 + [_L, _I, _I, _P],
+    },
+    "knn_subblock_max_int8": {
+        # codes, scales, q8, bmax, bcnt, n, d, q, sub, n_valid, stream
+        "knn_subblock_max_int8": [_P] * 5 + [_L, _I, _I, _I, _L, _P],
+    },
+    "knn_subblock_max_mv": {
+        # vecs, row_docs, queries, bmax, bcnt, n, d, q, sub, n_valid,
+        # m_max, stream
+        "knn_subblock_max_mv": [_P] * 5 + [_L, _I, _I, _I, _L, _I, _P],
     },
 }
 

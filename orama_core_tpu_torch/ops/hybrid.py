@@ -1,18 +1,18 @@
 """Fused hybrid serving program: one call per query.
 
 Port of ``orama_core_tpu/ops/hybrid.py`` (``hybrid_fused_topk_mf``,
-``vmode="exact"``; the reference's sequential hybrid join,
+``vmode`` "exact" and "int8"; the reference's sequential hybrid join,
 collection.rs:730-772). The whole query
 
     filter masks -> per-field BM25 (K1 scan + dense head rows + K4 phrase
-    boost) -> exact vector matmul -> RRF/min-max fusion -> top-k + count
-    + facet counts
+    boost) -> exact bf16 or int8 vector product -> RRF/min-max fusion ->
+    top-k + count + facet counts
 
 runs as one sequence of device launches with no host sync before the
 results are read. The staging layout is the reference's (two small
 buffers, one int32 and one float32, unpacked at static offsets), so the
-engine's host packing ports line for line. The ANN vmodes (int8, ivf,
-pq, ivf_pq) and the batched program are later slices.
+engine's host packing ports line for line. The ANN vmodes (ivf, pq,
+ivf_pq) and the batched program are later slices.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ import torch
 from . import bm25 as bm25_ops
 from . import facets as facet_ops
 from . import filters as filter_ops
+from . import quant as quant_ops
 from . import vector as vector_ops
 from .fusion import dense_topk, minmax_fuse, rrf_candidate_count, rrf_fuse_topk
 
@@ -83,7 +84,7 @@ def hybrid_fused_topk_mf(
     single-valued number column from its doc-major plane (cols =
     (plane,)). Returns (vals f32[k], ids int32[k], count int32, facet
     counts tuple)."""
-    if vmode != "exact":
+    if vmode not in ("exact", "int8"):
         raise NotImplementedError(f"vmode={vmode!r}: a later port slice")
     dev = alive_mask.device
     ic = [0]
@@ -201,10 +202,18 @@ def hybrid_fused_topk_mf(
         if masked:
             ft = ft * mask
     if mode != "fulltext":
-        identity = bool(v_statics and v_statics[0])
-        sims = vector_ops.sims_f32(vecs, query[None, :])[:, 0]
-        sims = torch.clamp(sims, min=0.0) * vec_valid
-        vec = vector_ops.doc_scores(sims, vec_docs, n_docs, identity)
+        if vmode == "exact":
+            identity = bool(v_statics and v_statics[0])
+            sims = vector_ops.sims_f32(vecs, query[None, :])[:, 0]
+            sims = torch.clamp(sims, min=0.0) * vec_valid
+            vec = vector_ops.doc_scores(sims, vec_docs, n_docs, identity)
+        else:  # "int8"
+            codes, scales, v_docs, v_valid = v_ann
+            # the mask is {0,1}: applying it here AND after the window add
+            # is idempotent, as in the reference
+            vec = quant_ops.int8_brute_force_scores(
+                codes, scales, v_docs, v_valid, query, mask, n_docs=n_docs
+            )
         if u_vec_n:
             vec = vec.index_add(0, u_vec_idx.long(), u_vec_vals)
         vec = vec * mask

@@ -1,17 +1,21 @@
 """Fused brute-force kNN: streaming sub-block max + exact rescore.
 
-Port of ``orama_core_tpu/ops/pallas_knn.py`` (single-vector bf16/f32; the
-int8 and multi-vector kernels are a later slice). The selection is split
-in two phases, as in the reference:
+Port of ``orama_core_tpu/ops/pallas_knn.py``: single-vector bf16/f32,
+int8 (capacity mode) and multi-vector (chunked) documents. The selection
+is split in two phases, as in the reference:
 
-  Phase 1 (K2, csrc/knn_subblock_max.cu): the corpus streams once against
-  the queries and ONLY the per-sub-block max similarity (and the count of
-  sims > 0) per query is written; the [N, Q] similarities never reach
-  device memory.
+  Phase 1: the corpus streams once against the queries and ONLY the
+  per-sub-block max similarity (and a positive count) per query is
+  written; the [N, Q] similarities never reach device memory. K2
+  (csrc/knn_subblock_max.cu) for bf16 rows, K5
+  (csrc/knn_subblock_max_int8.cu) for int8 codes, K6
+  (csrc/knn_subblock_max_mv.cu) for chunked docs, whose metric is the
+  max of the per-doc running relu sum.
 
   Phase 2: the k best sub-blocks per query are picked (tiered block-max
-  filter) and their rows rescored exactly (K3, csrc/knn_rescore.cu), then
-  the final top-k is taken from the k*SUB candidates.
+  filter) and their rows rescored exactly (K3, csrc/knn_rescore.cu, for
+  bf16 rows; a gather and product for int8 rows and chunked docs), then
+  the final top-k is taken from the candidates.
 
 Exactness: every true top-k element lives in a sub-block whose max is >=
 the k-th best value, and at most k sub-blocks can have a max above it, so
@@ -27,7 +31,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _cuda
+from . import _cuda, quant
 from .topk import topk_stable
 from .vector import sims_f32
 
@@ -179,19 +183,31 @@ def _select_and_rescore(vecs, queries, bmax, k, sub, n_valid, qn):
     return _final_topk(sims, _candidate_rows(sub_ids, sub), k, n_valid)
 
 
-def _rescore_topk(bmax_t, vecs, queries, k, sub, n_valid, qn):
-    """Phase 2 for sub % 8 != 0: pick the k best sub-blocks per query from
-    bmax_t [Q, nsub], gather and rescore their rows exactly, final top-k."""
+def _select_subblocks(bmax_t, k):
+    """The k best sub-block ids int64[Q, k] per query from bmax_t [Q, nsub]
+    (the tiered filter once the table is large)."""
     nsub = bmax_t.shape[1]
     if nsub >= 4 * _TIER_GROUP and k <= nsub:
-        sub_ids = _tiered_subblock_topk(bmax_t.T, k)
-    else:
-        sub_ids = topk_stable(bmax_t, k)[1]
-    rows = _candidate_rows(sub_ids, sub)
-    cand = vecs[rows].to(torch.float32)                      # [Q, k*SUB, D]
+        return _tiered_subblock_topk(bmax_t.T, k)
+    return topk_stable(bmax_t, k)[1]
+
+
+def _rescore_topk(bmax_t, rescore, k, sub, n_valid):
+    """Phase 2: pick the k best sub-blocks per query from bmax_t [Q, nsub],
+    rescore their rows exactly with ``rescore(rows)`` (rows int64[Q, C] ->
+    f32[Q, C]), final top-k."""
+    rows = _candidate_rows(_select_subblocks(bmax_t, k), sub)
+    return _final_topk(rescore(rows), rows, k, n_valid)
+
+
+def _exact_rescore(vecs, queries):
     q = queries.to(vecs.dtype).to(torch.float32)
-    sims = torch.einsum("qd,qcd->qc", q, cand)
-    return _final_topk(sims, rows, k, n_valid)
+
+    def rescore(rows):
+        cand = vecs[rows].to(torch.float32)                  # [Q, C, D]
+        return torch.einsum("qd,qcd->qc", q, cand)
+
+    return rescore
 
 
 def _dense_topk_with_count(vecs, queries, k, n_valid):
@@ -225,7 +241,8 @@ def knn_topk_with_count(vecs: torch.Tensor, queries: torch.Tensor,
     if sub % 8 == 0:
         v, i = _select_and_rescore(vecs, queries, bmax, k, sub, n_valid, qn)
     else:
-        v, i = _rescore_topk(bmax.T, vecs, queries, k, sub, n_valid, qn)
+        v, i = _rescore_topk(bmax.T, _exact_rescore(vecs, queries), k, sub,
+                             n_valid)
     return v, i, count
 
 
@@ -237,3 +254,281 @@ def knn_topk(vecs: torch.Tensor, queries: torch.Tensor, k: int = 10,
         n_valid=n_valid,
     )
     return v, i
+
+
+# -- K5: int8 per-sub-block max / positive count ------------------------------
+
+
+def subblock_max_int8_plain(codes: torch.Tensor, scales: torch.Tensor,
+                            q8: torch.Tensor, sub: int, n_valid: int):
+    """Plain torch version of K5: (bmax f32[N/sub, Q], bcnt int32[N/sub,
+    Q]) of ``acc * scales[row]``, acc being the exact int32 product of the
+    codes with the int8 queries, rows >= n_valid scoring NEG. The query
+    scale is left out, as in the reference: a positive constant per
+    column changes no selection, and phase 2 restores it."""
+    n = codes.shape[0]
+    acc = quant.int8_matmul(codes, q8)                       # int32 [N, Q]
+    sims = acc.to(torch.float32) * scales[:, None]
+    rows = torch.arange(n, device=codes.device)[:, None]
+    sims = torch.where(rows < n_valid, sims, torch.full_like(sims, NEG))
+    s3 = sims.reshape(n // sub, sub, -1)
+    return s3.amax(dim=1), (s3 > 0).sum(dim=1).to(torch.int32)
+
+
+def subblock_max_int8(codes: torch.Tensor, scales: torch.Tensor,
+                      q8: torch.Tensor, sub: int, n_valid: int):
+    """K5: K2's outputs over int8 codes int8[N, D], per-row scales f32[N]
+    and int8 queries int8[Q, D]. Sub-blocks at or above n_valid come out
+    as NEG / 0 without a read of their rows."""
+    if not codes.is_cuda:
+        return subblock_max_int8_plain(codes, scales, q8, sub, n_valid)
+    _cuda.require(codes, "codes", torch.int8, 2)
+    _cuda.require(scales, "scales", torch.float32, 1)
+    q8 = q8.contiguous()
+    _cuda.require(q8, "q8", torch.int8, 2)
+    n, d = codes.shape
+    qn = q8.shape[0]
+    if q8.shape[1] != d or scales.shape[0] != n:
+        raise ValueError("codes, scales and q8 disagree in shape")
+    if d % 16 or sub % 32 or n % sub:
+        raise ValueError(f"K5 needs D % 16 == 0 and sub % 32 == 0 (D={d}, "
+                         f"sub={sub}, N={n})")
+    if codes.data_ptr() % 16 or q8.data_ptr() % 16:
+        raise ValueError("K5 reads codes and queries in 16-byte chunks: "
+                         "both must start 16-byte aligned")
+    bmax = torch.empty(n // sub, qn, dtype=torch.float32, device=codes.device)
+    bcnt = torch.empty(n // sub, qn, dtype=torch.int32, device=codes.device)
+    lib = _cuda.lib("knn_subblock_max_int8")
+    _cuda.LAUNCHES["knn_subblock_max_int8"] += 1
+    _cuda.check(lib.knn_subblock_max_int8(
+        _cuda.ptr(codes), _cuda.ptr(scales), _cuda.ptr(q8), _cuda.ptr(bmax),
+        _cuda.ptr(bcnt), int(n), int(d), int(qn), int(sub), int(n_valid),
+        _cuda.stream(),
+    ), "knn_subblock_max_int8")
+    return bmax, bcnt
+
+
+def knn_topk_int8_with_count(codes: torch.Tensor, scales: torch.Tensor,
+                             queries: torch.Tensor, k: int = 10,
+                             block_rows: int = 2048, sub_rows: int = 32,
+                             n_valid: int = -1):
+    """(values f32[Q, k], indices int32[Q, k], count int32[Q]) over int8
+    codes [N, D] with per-row scales f32[N]; the f32 queries [Q, D] are
+    quantized on the fly. Values are the quantized cosines, and the count
+    is of positive QUANTIZED sims, as the int8 dense scorer counts."""
+    n, _d = codes.shape
+    if n % block_rows:
+        raise ValueError("pad corpus to a multiple of block_rows")
+    if n_valid < 0:
+        n_valid = n
+    sub = _pick_sub(block_rows, sub_rows)
+    nsub = n // sub
+    q8, q_scale = quant.quantize_int8(queries)
+    q_scale = q_scale[:, None]
+    if k * sub * 4 >= n_valid or k > nsub:
+        acc = quant.int8_matmul(codes, q8).T                 # [Q, N]
+        sims = acc.to(torch.float32) * scales[None, :] * q_scale
+        cols = torch.arange(n, device=codes.device)[None, :]
+        sims = torch.where(cols < n_valid, sims, torch.full_like(sims, NEG))
+        v, i = topk_stable(sims, k)
+        cnt = (sims > 0).sum(dim=1).to(torch.int32)
+        return v, i.to(torch.int32), cnt
+    bmax, bcnt = subblock_max_int8(codes, scales, q8, sub, n_valid)
+    count = bcnt.sum(dim=0, dtype=torch.int32)
+
+    def int8_sims(rows):
+        acc = quant.int8_gather_dot(codes, q8, rows)
+        return acc * scales[rows] * q_scale
+
+    v, i = _rescore_topk(bmax.T, int8_sims, k, sub, n_valid)
+    return v, i, count
+
+
+def knn_topk_int8(codes: torch.Tensor, scales: torch.Tensor,
+                  queries: torch.Tensor, k: int = 10, block_rows: int = 2048,
+                  sub_rows: int = 32, n_valid: int = -1):
+    """(values f32[Q, k], indices int32[Q, k]) — exact int8 top-k."""
+    v, i, _ = knn_topk_int8_with_count(
+        codes, scales, queries, k=k, block_rows=block_rows,
+        sub_rows=sub_rows, n_valid=n_valid,
+    )
+    return v, i
+
+
+# -- K6: multi-vector per-sub-block max of the per-doc running sum -----------
+
+
+def subblock_max_mv_plain(vecs: torch.Tensor, row_docs: torch.Tensor,
+                          queries: torch.Tensor, sub: int, n_valid: int,
+                          m_max: int):
+    """Plain torch version of K6 over doc-ascending rows (each doc's rows
+    contiguous, at most ``m_max`` of them). Per row, seg = the inclusive
+    running sum of relu(sim) over the earlier rows of its doc; per
+    sub-block, bmax f32[N/sub, Q] = the max of seg and bcnt int32[N/sub,
+    Q] = the number of rows that are the first positive row of their doc.
+    Rows >= n_valid score 0 and join no doc, so a sub-block wholly past
+    n_valid has max 0 and count 0.
+
+    The running sum adds each row's m_max - 1 predecessors directly
+    (offsets whose doc id equals the row's), never as a difference of
+    global prefix sums, whose f32 rounding at 1M rows would reorder
+    hits."""
+    n = vecs.shape[0]
+    dev = vecs.device
+    sims = sims_f32(vecs, queries)                           # [N, Q]
+    valid = (torch.arange(n, device=dev) < n_valid)[:, None]
+    rel = torch.where(valid, torch.clamp(sims, min=0.0),
+                      torch.zeros_like(sims))
+    pos = valid & (sims > 0)
+    docs = torch.where(valid[:, 0], row_docs.to(torch.int64),
+                       torch.full((n,), -1, dtype=torch.int64, device=dev))
+    seg = rel.clone()
+    seen = torch.zeros_like(pos)
+    for o in range(1, min(m_max, n)):
+        same = (docs[o:] == docs[:-o])[:, None]
+        seg[o:] += torch.where(same, rel[:-o], torch.zeros_like(rel[:-o]))
+        seen[o:] |= same & pos[:-o]
+    first = pos & ~seen
+    qn = sims.shape[1]
+    return (seg.reshape(n // sub, sub, qn).amax(dim=1),
+            first.reshape(n // sub, sub, qn).sum(dim=1).to(torch.int32))
+
+
+def subblock_max_mv(vecs: torch.Tensor, row_docs: torch.Tensor,
+                    queries: torch.Tensor, sub: int, n_valid: int,
+                    m_max: int):
+    """K6: the multi-vector phase-1 table (see the plain version)."""
+    if not vecs.is_cuda:
+        return subblock_max_mv_plain(vecs, row_docs, queries, sub, n_valid,
+                                     m_max)
+    _cuda.require(vecs, "vecs", torch.bfloat16, 2)
+    _cuda.require(row_docs, "row_docs", torch.int32, 1)
+    queries = queries.to(torch.bfloat16).contiguous()
+    _cuda.require(queries, "queries", torch.bfloat16, 2)
+    n, d = vecs.shape
+    qn = queries.shape[0]
+    if queries.shape[1] != d or row_docs.shape[0] != n:
+        raise ValueError("vecs, row_docs and queries disagree in shape")
+    if d % 8 or sub % 32 or n % sub or m_max < 1:
+        raise ValueError(f"K6 needs D % 8 == 0, sub % 32 == 0 and m_max >= 1"
+                         f" (D={d}, sub={sub}, N={n}, m_max={m_max})")
+    if vecs.data_ptr() % 16:
+        raise ValueError("K6 reads the corpus in 16-byte chunks: vecs must "
+                         "start 16-byte aligned")
+    bmax = torch.empty(n // sub, qn, dtype=torch.float32, device=vecs.device)
+    bcnt = torch.empty(n // sub, qn, dtype=torch.int32, device=vecs.device)
+    lib = _cuda.lib("knn_subblock_max_mv")
+    _cuda.LAUNCHES["knn_subblock_max_mv"] += 1
+    _cuda.check(lib.knn_subblock_max_mv(
+        _cuda.ptr(vecs), _cuda.ptr(row_docs), _cuda.ptr(queries),
+        _cuda.ptr(bmax), _cuda.ptr(bcnt), int(n), int(d), int(qn), int(sub),
+        int(n_valid), int(m_max), _cuda.stream(),
+    ), "knn_subblock_max_mv")
+    return bmax, bcnt
+
+
+def _rescore_topk_segmented(vecs, queries, bmax_t, row_docs, row_starts,
+                            k: int, over: int, sub: int, m_max: int,
+                            n_valid: int):
+    """Phase 2 for multi-vector docs, the reference's two stages:
+
+    2a (candidate docs): the top k*over sub-blocks by phase 1's metric
+    hold the true top-k docs' last rows; each is gathered with the
+    predecessors a doc can span (duplicates masked), so a doc ending in a
+    selected sub-block has all its rows gathered and its partial sum is
+    its exact total.
+
+    2b (exact rescore): for the top k*over docs by 2a sum, every chunk
+    row (through the doc CSR ``row_starts``) is rescored, the sum of relu
+    cos taken, and the final doc top-k returned.
+
+    Returns (values f32[Q, k], DOC ids int32[Q, k])."""
+    qn, nsub = bmax_t.shape
+    dev = vecs.device
+    k2 = min(k * over, nsub)
+    sub_ids = _select_subblocks(bmax_t, k2)                  # [Q, k2]
+    span = -(-(m_max - 1) // sub) + 1                        # sub-blocks/doc
+    ext = (sub_ids[:, :, None]
+           - torch.arange(span, device=dev)).reshape(qn, k2 * span)
+    ext = torch.sort(ext.clamp(0, nsub - 1), dim=1).values
+    dup = torch.cat([torch.zeros(qn, 1, dtype=torch.bool, device=dev),
+                     ext[:, 1:] == ext[:, :-1]], dim=1)      # mask repeats
+    rows = _candidate_rows(ext, sub)                         # [Q, C]
+    c = rows.shape[1]
+    q = queries.to(vecs.dtype).to(torch.float32)
+    sims = torch.einsum("qd,qcd->qc", q, vecs[rows].to(torch.float32))
+    keep = (rows < n_valid) & ~dup.repeat_interleave(sub, dim=1)
+    sims = torch.where(keep, torch.clamp(sims, min=0.0), torch.zeros_like(sims))
+    d = row_docs[rows]                                       # [Q, C]
+    order = torch.argsort(d, dim=1, stable=True)
+    ds = torch.gather(d, 1, order)
+    ss = torch.gather(sims, 1, order)
+    is_start = torch.cat([torch.ones(qn, 1, dtype=torch.bool, device=dev),
+                          ds[:, 1:] != ds[:, :-1]], dim=1)
+    run_id = torch.cumsum(is_start.to(torch.int64), dim=1) - 1
+    totals = torch.zeros(qn, c, dtype=torch.float32, device=dev)
+    totals.scatter_add_(1, run_id, ss)
+    per_elem = torch.gather(totals, 1, run_id)
+    scored = torch.where(is_start, per_elem, torch.full_like(per_elem, NEG))
+
+    kd = min(k2, c)
+    v_part, i_part = topk_stable(scored, kd)                 # [Q, kd]
+    docs_kd = torch.gather(ds, 1, i_part).to(torch.int64)
+    # slots past the distinct candidate docs hold non-start positions
+    # (NEG): -1 keeps them from duplicating a real doc in the final top-k
+    docs_kd = torch.where(v_part > NEG / 2, docs_kd,
+                          torch.full_like(docs_kd, -1))
+    safe = docs_kd.clamp_min(0)
+    starts = row_starts[safe].to(torch.int64)                # [Q, kd]
+    lens = row_starts[safe + 1].to(torch.int64) - starts
+    ar = torch.arange(m_max, device=dev)
+    rows2 = (starts[:, :, None] + ar).clamp(0, n_valid - 1)  # [Q, kd, M]
+    valid2 = ar < lens[:, :, None]
+    sims2 = torch.einsum("qd,qkmd->qkm", q, vecs[rows2].to(torch.float32))
+    sums = torch.where(valid2, torch.clamp(sims2, min=0.0),
+                       torch.zeros_like(sims2)).sum(dim=2)   # [Q, kd]
+    sums = torch.where(docs_kd >= 0, sums, torch.full_like(sums, NEG))
+    v, i = topk_stable(sums, k)
+    return v, torch.gather(docs_kd, 1, i).to(torch.int32)
+
+
+def knn_topk_multivec_with_count(vecs: torch.Tensor, row_docs: torch.Tensor,
+                                 row_starts: torch.Tensor,
+                                 queries: torch.Tensor, k: int = 10,
+                                 block_rows: int = 2048, sub_rows: int = 32,
+                                 over: int = 4, m_max: int = 8,
+                                 n_valid: int = -1, n_docs: int = -1):
+    """Fused kNN over multi-vector (chunked) docs: (values f32[Q, k], DOC
+    ids int32[Q, k], count int32[Q]), a doc's score being the sum of relu
+    cos over its chunk rows and the count the number of docs with a
+    positive row. ``row_docs`` int32[N] must ascend over the real rows
+    (each doc's rows contiguous, at most ``m_max`` of them) and
+    ``row_starts`` int32[n_docs + 1] is the doc -> row range CSR."""
+    n, _d = vecs.shape
+    qn = queries.shape[0]
+    if n % block_rows:
+        raise ValueError("pad corpus to a multiple of block_rows")
+    if n_valid < 0:
+        n_valid = n
+    sub = _pick_sub(block_rows, sub_rows)
+    nsub = n // sub
+    if n_docs < 0:
+        n_docs = n
+    if k * over * sub * 4 >= n_valid or k * over > nsub:
+        # small corpus: dense sims + exact per-doc segment sum
+        sims = sims_f32(vecs, queries).T                     # [Q, N]
+        cols = torch.arange(n, device=vecs.device)[None, :]
+        sims = torch.where(cols < n_valid, torch.clamp(sims, min=0.0),
+                           torch.zeros_like(sims))
+        seg = torch.zeros(qn, n_docs, dtype=torch.float32, device=vecs.device)
+        seg.index_add_(1, row_docs.long(), sims)
+        v, i = topk_stable(seg, k)
+        cnt = (seg > 0).sum(dim=1).to(torch.int32)
+        return v, i.to(torch.int32), cnt
+    bmax, bcnt = subblock_max_mv(vecs, row_docs, queries, sub, n_valid, m_max)
+    count = bcnt.sum(dim=0, dtype=torch.int32)
+    v, docs_k = _rescore_topk_segmented(
+        vecs, queries, bmax.T, row_docs, row_starts, k, over, sub, m_max,
+        n_valid,
+    )
+    return v, docs_k, count

@@ -327,6 +327,21 @@ def test_kernel_knobs_gate_nothing(tmp_path, monkeypatch):
     port.cfg.use_pallas = False
     body = {"term": "quantum", "mode": "vector"}
     assert port._vector_fast_field(PortParams.from_json(body)) == 0
+    # int8_phase1 picks the reference's int8 phase 1 (its XLA matmul or
+    # its in-kernel dot); on the card K5 serves both, with the same hits
+    from orama_core_tpu_torch.ops import knn as port_knn
+    from test_torch_engine_int8 import _int8_fast_readers, _search_pair
+
+    k5 = []
+    orig = port_knn.subblock_max_int8
+    monkeypatch.setattr(port_knn, "subblock_max_int8",
+                        lambda *a, **k: k5.append(1) or orig(*a, **k))
+    hits = {}
+    for phase1 in ("xla", "pallas"):
+        ref8, port8 = _int8_fast_readers(phase1=phase1)
+        hits[phase1] = _search_pair(ref8, port8, body)
+    assert hits["xla"] == hits["pallas"]
+    assert len(k5) == 2, "int8_phase1 must not route around K5"
 
 
 def test_reference_data_dir_loads_into_port(tmp_path):
