@@ -38,12 +38,22 @@ all started together), then runs, failing at the first phase that fails:
    mode is held against the same data directory loaded by
    ``build_orama(device="cpu")``.
 
+After phase 3, K2 and K6 are each checked and timed at Q = 1 (the
+engine's shape), 8 and 64 (batched serving's) on the exact and chunked
+corpora, with their bounds (one ``{"q_sweep": ...}`` JSON line).
+
 With ``--profile``, each engine mode is also traced with torch.profiler
 (device busy share, top ops by device time and by host self time). The
 last three lines are the card's name and power limit, the kernels' JSON
 record and ``{"ok": true, "device": {...}}``. Without a CUDA device the
 script exits non-zero and prints no result; nothing runs on the CPU in
 its place.
+
+``--sweep-only`` builds the kernels and runs only the Q sweep, on the same
+shapes made on the card from a seed (no collections, no result line). The
+sweep needs nothing beyond the kernel wrappers, so this file, copied into
+a checkout of an earlier commit of the port, measures that commit's K2
+and K6 the same way.
 """
 
 from __future__ import annotations
@@ -322,29 +332,14 @@ def phase_kernels(reader, rng):
     vf = reader._vector[1]
     vecs, _docs, _valid = reader._device.vector_arrays(vf.committed)
     n_valid = vf.committed.n_vectors
-    q = rng.standard_normal((8, vecs.shape[1])).astype(np.float32)
-    q /= np.linalg.norm(q, axis=1, keepdims=True)
-    qd = torch.as_tensor(q, device="cuda").to(torch.bfloat16)
-    bm, bc = knn.subblock_max(vecs, qd, 32, n_valid)
-    pm, pc = knn.subblock_max_plain(vecs, qd, 32, n_valid)
-    torch.cuda.synchronize()
-    err = (bm - pm).abs().max().item()
-    require(err <= 1e-4, f"K2 max disagrees: {err}")
-    sims = vector_sims(vecs, qd, n_valid)
-    near0 = (sims.abs() < 1e-5).reshape(-1, 32, sims.shape[1]).any(dim=1)
-    near0 = torch.cat([near0, torch.zeros(
-        pc.shape[0] - near0.shape[0], pc.shape[1], dtype=torch.bool,
-        device="cuda")])
-    bad = (bc != pc) & ~near0
-    require(int(bad.sum()) == 0, f"K2 counts disagree in {int(bad.sum())} "
-            "sub-blocks with no near-zero similarity")
+    qd = unit_queries(rng, 8, vecs.shape[1])
+    err, pm = check_k2(vecs, qd, n_valid)
     ms = time_ms(lambda: knn.subblock_max(vecs, qd, 32, n_valid), 20)
     pms = time_ms(lambda: knn.subblock_max_plain(vecs, qd, 32, n_valid), 3)
     d = vecs.shape[1]
     out.append(kernel_record(
         "knn_subblock_max", err, ms, pms,
-        bytes_moved=n_valid * d * 2 + 8 * d * 2 + bm.numel() * 8,
-        ops=2 * n_valid * d * 8, peak_ops=BF16_FLOPS))
+        *k2_work(vecs.shape[0], n_valid, d, 8), peak_ops=BF16_FLOPS))
     log(f"K2 ok: err {err:.3g}, {ms:.4f} ms")
     # K2 at the registry's wider embedding widths (768: bge-base, 1024:
     # bge-large), whose rows must not outgrow the kernel's shared memory
@@ -353,15 +348,11 @@ def phase_kernels(reader, rng):
         vw = (vw / vw.norm(dim=1, keepdim=True)).to(torch.bfloat16)
         qw = torch.randn(8, width, generator=gen, device="cuda")
         qw = (qw / qw.norm(dim=1, keepdim=True)).to(torch.bfloat16)
-        wm, _ = knn.subblock_max(vw, qw, 32, 250_000)
-        wp, _ = knn.subblock_max_plain(vw, qw, 32, 250_000)
-        torch.cuda.synchronize()
-        werr = (wm - wp).abs().max().item()
-        require(werr <= 1e-4, f"K2 max disagrees at D={width}: {werr}")
+        werr, _ = check_k2(vw, qw, 250_000)
         wms = time_ms(lambda: knn.subblock_max(vw, qw, 32, 250_000), 10)
         log(f"K2 ok at D={width}: 262,144 rows, n_valid 250,000, Q=8, "
             f"err {werr:.3g}, {wms:.4f} ms")
-        del vw, wm, wp
+        del vw
 
     # K3: the sub-blocks phase 2 selects for these queries (k = 16); timed
     # in turn with 23 more query batches' selections (~75 MB of rows, past
@@ -473,9 +464,7 @@ def phase_kernels_int8_mv(reader8, reader_mv, rng):
         vecs, row_docs, qd, 32, n_valid, 8), 3)
     out.append(kernel_record(
         "knn_subblock_max_mv", err, ms, pms,
-        bytes_moved=(n_valid * d * 2 + n_valid * 4 + 8 * d * 2
-                     + (vecs.shape[0] // 32) * 8 * 8),
-        ops=2 * n_valid * d * 8, peak_ops=BF16_FLOPS))
+        *k6_work(vecs.shape[0], n_valid, d, 8), peak_ops=BF16_FLOPS))
     log(f"K6 ok: {vecs.shape[0]} rows, n_valid {n_valid}, m_max 8, err "
         f"{err:.3g}, {nbad} counts off at near-zero sims, {ms:.4f} ms")
     # K6 at m_max = 64: 4,000 docs of 1-64 rows (~130k rows)
@@ -490,6 +479,107 @@ def phase_kernels_int8_mv(reader8, reader_mv, rng):
     log(f"K6 ok at m_max=64: {len(docs64)} rows of 4,000 docs, err "
         f"{err64:.3g}, {nbad64} counts off at near-zero sims, {ms64:.4f} ms")
     return out
+
+
+def unit_queries(rng, q, d):
+    """q unit-norm bf16 queries on the card, from the numpy generator."""
+    import torch
+
+    x = rng.standard_normal((q, d)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    return torch.as_tensor(x, device="cuda").to(torch.bfloat16)
+
+
+def k2_work(n, n_valid, d, q):
+    """(bytes, operations) K2 must spend: the live rows and the queries
+    read once, both outputs of every sub-block written once, and a
+    multiply-add per live element and query."""
+    return n_valid * d * 2 + q * d * 2 + (n // 32) * q * 8, 2 * n_valid * d * q
+
+
+def k6_work(n, n_valid, d, q):
+    """K2's work plus the live rows' 4-byte doc ids."""
+    b, ops = k2_work(n, n_valid, d, q)
+    return b + n_valid * 4, ops
+
+
+def check_k2(vecs, qd, n_valid):
+    """K2 against its plain version: max within 1e-4 (f32 sums of exact
+    bf16 products in another order), counts equal in every sub-block with
+    no similarity within 1e-5 of zero. Returns (max abs err, plain max)."""
+    import torch
+
+    from orama_core_tpu_torch.ops import knn
+
+    bm, bc = knn.subblock_max(vecs, qd, 32, n_valid)
+    pm, pc = knn.subblock_max_plain(vecs, qd, 32, n_valid)
+    torch.cuda.synchronize()
+    require(bm.shape == pm.shape and bc.shape == pc.shape,
+            f"K2 shapes {tuple(bm.shape)} vs {tuple(pm.shape)}")
+    err = (bm - pm).abs().max().item()
+    require(err <= 1e-4, f"K2 max disagrees at Q={qd.shape[0]}: {err}")
+    sims = vector_sims(vecs, qd, n_valid)
+    near0 = torch.zeros(vecs.shape[0], qd.shape[0], dtype=torch.bool,
+                        device="cuda")
+    near0[:n_valid] = sims.abs() < 1e-5
+    near0 = near0.reshape(-1, 32, qd.shape[0]).any(dim=1)
+    bad = int(((bc != pc) & ~near0).sum())
+    require(bad == 0, f"K2 counts disagree at Q={qd.shape[0]} in {bad} "
+            "sub-blocks with no near-zero similarity")
+    return err, pm
+
+
+def phase_q_sweep(vecs, n_valid, mv_vecs, mv_docs, mv_valid, rng):
+    """K2 and K6 at Q = 1 (the engine's shape), 8 and 64 (batched
+    serving's): each checked against its plain version and timed, with
+    its bound. K2 on the padded 1M-row corpus, K6 on the chunked one."""
+    from orama_core_tpu_torch.ops import knn
+
+    d = vecs.shape[1]
+    rows = {}
+    for q in (1, 8, 64):
+        qd = unit_queries(rng, q, d)
+        err, _ = check_k2(vecs, qd, n_valid)
+        ms = time_ms(lambda: knn.subblock_max(vecs, qd, 32, n_valid), 20)
+        b, _ = bound_ms(*k2_work(vecs.shape[0], n_valid, d, q), BF16_FLOPS)
+        rows[f"knn_subblock_max/Q={q}"] = {
+            "ms": ms, "bound_ms": b, "max_abs_err": err}
+        log(f"K2 Q={q}: err {err:.3g}, {ms:.4f} ms, bound {b:.4f} ms")
+        err, nbad, ms = check_k6(mv_vecs, mv_docs, qd, mv_valid, 8)
+        b, _ = bound_ms(*k6_work(mv_vecs.shape[0], mv_valid, d, q),
+                        BF16_FLOPS)
+        rows[f"knn_subblock_max_mv/Q={q}"] = {
+            "ms": ms, "bound_ms": b, "max_abs_err": err,
+            "counts_off_near_zero": nbad}
+        log(f"K6 Q={q}: err {err:.3g}, {ms:.4f} ms, bound {b:.4f} ms")
+    return rows
+
+
+def sweep_corpora():
+    """The two corpora of phase_q_sweep made on the card from a seed, in
+    the device caches' layout: 4,194,304 padded rows of 384-d unit bf16
+    vectors, 1,000,000 live; and 999,826 live rows of 250,000 chunked docs
+    of 1-7 rows (synth_multivec_arrays' doc layout), ids padded with 0."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    n, d = 4_194_304, DIM
+
+    def unit_rows(live):
+        v = torch.zeros(n, d, dtype=torch.bfloat16, device="cuda")
+        for lo in range(0, live, 250_000):
+            x = torch.randn(min(250_000, live - lo), d, generator=gen,
+                            device="cuda")
+            v[lo:lo + x.shape[0]] = (x / x.norm(dim=1, keepdim=True)).to(
+                torch.bfloat16)
+        return v
+
+    nch = np.random.default_rng(3).integers(1, 8, 250_000)
+    docs = np.repeat(np.arange(250_000, dtype=np.int32), nch)
+    mv_docs = torch.zeros(n, dtype=torch.int32, device="cuda")
+    mv_docs[:len(docs)] = torch.as_tensor(docs, device="cuda")
+    return unit_rows(1_000_000), 1_000_000, unit_rows(len(docs)), mv_docs, \
+        len(docs)
 
 
 def check_k6(vecs, row_docs, qd, n_valid, m_max):
@@ -507,8 +597,11 @@ def check_k6(vecs, row_docs, qd, n_valid, m_max):
     pm, pc = knn.subblock_max_mv_plain(vecs, row_docs, qd, 32, n_valid, m_max)
     torch.cuda.synchronize()
     err = (bm - pm).abs().max().item()
+    require(bm.shape == pm.shape and bc.shape == pc.shape,
+            f"K6 shapes {tuple(bm.shape)} vs {tuple(pm.shape)}")
     require(torch.allclose(bm, pm, rtol=1e-5, atol=1e-6),
-            f"K6 sums disagree at m_max={m_max}: max err {err}")
+            f"K6 sums disagree at m_max={m_max}, Q={qd.shape[0]}: max err "
+            f"{err}")
     sims = vector_sims(vecs, qd, n_valid)
     near = torch.zeros(vecs.shape[0], qd.shape[0], device="cuda")
     near[:n_valid] = (sims.abs() < 1e-5).float()
@@ -518,8 +611,8 @@ def check_k6(vecs, row_docs, qd, n_valid, m_max):
     near = near.reshape(-1, 32, qd.shape[0]).amax(dim=1) > 0
     nbad = int((bc != pc).sum())
     bad = int(((bc != pc) & ~near).sum())
-    require(bad == 0, f"K6 counts disagree in {bad} sub-blocks with no "
-            "near-zero similarity")
+    require(bad == 0, f"K6 counts disagree at Q={qd.shape[0]} in {bad} "
+            "sub-blocks with no near-zero similarity")
     require(int(bc.sum()) > 0 and float(bm.max()) > 0, "K6 found nothing")
     ms = time_ms(lambda: knn.subblock_max_mv(vecs, row_docs, qd, 32, n_valid,
                                              m_max), 20)
@@ -811,6 +904,10 @@ def main() -> int:
     _cuda.build_all(force=True)
     log(f"built {len(_cuda.SIGNATURES)} kernels in "
         f"{time.perf_counter() - t0:.1f} s")
+    if "--sweep-only" in sys.argv[1:]:
+        rows = phase_q_sweep(*sweep_corpora(), np.random.default_rng(42))
+        print(json.dumps({"q_sweep": rows, "card": card}), flush=True)
+        return 0
 
     t0 = time.perf_counter()
     arrays = synth_arrays()
@@ -837,6 +934,14 @@ def main() -> int:
     records += phase_kernels_int8_mv(readers["int8"], readers["chunked"], rng)
     for rec in records:
         print(json.dumps(rec), flush=True)
+    exact = readers["exact"]._vector[1].committed
+    chunked = readers["chunked"]._vector[0].committed
+    vecs = readers["exact"]._device.vector_arrays(exact)[0]
+    mv_vecs, mv_docs, _ = readers["chunked"]._device.vector_arrays(chunked)
+    rows = phase_q_sweep(vecs, exact.n_vectors, mv_vecs, mv_docs,
+                         chunked.n_vectors, rng)
+    del vecs, mv_vecs, mv_docs
+    print(json.dumps({"q_sweep": rows, "card": card}), flush=True)
     pairs = {name: (readers[name], make_reader(arr, "cpu", index))
              for name, (arr, index) in collections.items()}
     p50, launches = phase_engine(pairs, rng)

@@ -10,236 +10,224 @@
 // counts iff its sim is > 0 and no earlier row of its doc has a sim > 0.
 // The TPU kernel carries the running sum, the last doc and the running
 // max of positive doc ids from one grid step to the next in VMEM, which
-// works only because a TPU grid runs in order.
-//
-// Design: a CUDA grid runs in no order, so nothing is carried between
-// blocks. The engine bounds a doc to m_max <= 64 rows, so a sub-block
-// needs only its own rows plus the earlier rows of its leading doc, at
-// most m_max - 1 rows back. One warp per sub-block of `sub` rows (sub a
-// multiple of 32), four warps per CUDA block. The warp reads the doc ids
-// before its first row (ballots over 32 ids at a time) to find how many
-// rows L of its leading doc precede it, scores those L rows too (they
-// were just streamed by the neighbouring warp, so they come from L2), and
-// then walks its own rows 32 at a time. Dot products are K2's: D in
-// 128-column slices through a padded shared-memory tile (38.9 KB a block
-// at any width), one lane per row, f32 FMAs. Per 32 rows the warp runs a
-// segmented inclusive scan of relu(sim) with shuffles (a lane adds the
-// partial sum `off` lanes up when that lane holds the same doc: sound
-// because equal ids are contiguous), adds the sum carried from the
-// previous 32 rows to the lanes of the carried doc, and finds each
-// positive row's earlier positives in its doc from a ballot. Rows at or
-// above n_valid score 0 and join no doc (the engine pads doc ids with 0,
-// which would otherwise break the ascending order); a sub-block wholly
-// past n_valid writes max 0 and count 0 without reading.
+// works because a TPU grid runs in order.
 //
 // Bound on this card: bytes. Each row is read once (2*D bytes + a 4-byte
-// doc id) for 2*D*Q flops: at Q=8, 8 flops/byte, far below the ~295
-// flops/byte at which bf16 tensor cores become the limit. The look-back
-// rows add L2 traffic, not device-memory traffic.
+// doc id) for 2*D*Q flops, far below the ~295 flops/byte at which bf16
+// tensor cores become the limit.
 //
-// Left for a later PR: as for K2, the FMA pipes instead of the tensor
-// cores and no copy in flight behind the compute.
+// Design: K2's streaming core (knn_stream.cuh): TMA-fed wgmma tiles of 64
+// rows against the resident queries, persistent blocks that each walk one
+// contiguous range of rows in order. That order gives back the TPU's
+// carry inside a block: one thread per query column walks each tile's
+// rows in order and keeps (running sum, seen-positive bit, last doc) in
+// registers across the whole range, as the TPU kept them across grid
+// steps. Only a range's start can lie inside a doc; the engine bounds a
+// doc to m_max <= 64 rows, so one look-back tile, the 64 rows before the
+// range, scored like any other and written nowhere, builds the carry of
+// the lead doc. One look-back per block (a few hundred per call) replaces
+// the earlier design's one per 32-row sub-block, each of which scored a
+// whole extra 32-row chunk with FMAs (~1.75x K2's rows at 1-7 rows per
+// doc).
+//
+// Epilogue per tile: the f32 sims go from the accumulator fragments to a
+// shared [64, NQ + 4] tile beside the tile's 64 doc ids (prefetched into
+// registers before the tile's products); thread j then scans column j:
+// per row, a new doc id resets the sum and the bit, a positive sim adds
+// to the sum and counts if the bit is clear, and the sum feeds the
+// sub-block's max, written when a 32-row half closes its sub-block. Rows
+// at or above n_valid score 0 and join no doc (the engine pads doc ids
+// with 0, which would otherwise break the ascending order); a sub-block
+// wholly past n_valid gets max 0 and count 0 without a read.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "knn_stream.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kRows = 32;       // rows staged per warp at a time
-constexpr int kQChunk = 8;      // queries scored per pass over a row
-constexpr int kDChunk = 128;    // columns staged per slice
-constexpr int kPitch = kDChunk + 8;  // bf16 per tile row: conflict-free reads
-constexpr unsigned kFull = 0xffffffffu;
+using namespace knn_stream;
 
-__global__ void __launch_bounds__(kWarps * 32) subblock_max_mv_kernel(
-    const __nv_bfloat16* __restrict__ vecs, const int* __restrict__ row_docs,
+template <int NQ>
+struct DocScan {
+  static constexpr int kPitch = NQ + 4;  // floats per staged row
+  const int* row_docs;
+  float* bmax;
+  int* bcnt;
+  long long n_valid, r0, r1;
+  int q, sub;
+  float* sims;  // [64][kPitch]
+  int* docs;    // [64]
+  int q0, nq;
+  int next_doc;  // thread t < 64: the doc id of row + t, loaded early
+  // thread j < nq: column j's carry and its open sub-block
+  float sum, best;
+  bool seen;
+  int doc, cnt;
+
+  __device__ void begin_chunk(int q0_, int nq_) {
+    q0 = q0_;
+    nq = nq_;
+    sum = best = 0.0f;
+    seen = false;
+    doc = -3;  // matches no row
+    cnt = 0;
+  }
+
+  __device__ void prefetch(long long row) {
+    const long long r = row + threadIdx.x;
+    if (threadIdx.x < kTileRows) next_doc = r < n_valid ? row_docs[r] : -1;
+  }
+
+  __device__ void tile(Acc<NQ>& acc, long long row) {
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    const int r_lo = 16 * warp + lane / 4;
+#pragma unroll
+    for (int i = 0; i < NQ / 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * i + 2 * (lane % 4) + e;
+        sims[r_lo * kPitch + col] = acc.d[4 * i + e];
+        sims[(r_lo + 8) * kPitch + col] = acc.d[4 * i + 2 + e];
+      }
+    }
+    if (threadIdx.x < kTileRows) docs[threadIdx.x] = next_doc;
+    consumer_sync();
+    const int j = threadIdx.x;
+    if (j < nq) {
+      const bool look_back = row < r0;  // builds the carry, writes nothing
+      for (int h = 0; h < 2; ++h) {
+        const long long base = row + 32 * h;
+        if (base >= r1) break;
+#pragma unroll 8
+        for (int r = 32 * h; r < 32 * h + 32; ++r) {
+          const int d = docs[r];
+          const float sim = sims[r * kPitch + j];
+          const bool pos = row + r < n_valid && sim > 0.0f;
+          if (d != doc) {  // a new doc's first row
+            doc = d;
+            sum = 0.0f;
+            seen = false;
+          }
+          sum += pos ? sim : 0.0f;
+          cnt += pos && !seen;
+          seen = seen || pos;
+          best = fmaxf(best, sum);
+        }
+        if (look_back) {
+          best = 0.0f;
+          cnt = 0;
+        } else if ((base + 32) % sub == 0) {  // the half closes its sub-block
+          const long long s = (base + 32) / sub - 1;
+          bmax[s * q + q0 + j] = best;
+          bcnt[s * q + q0 + j] = cnt;
+          best = 0.0f;
+          cnt = 0;
+        }
+      }
+    }
+    consumer_sync();  // the staged tile is rewritten by the next one
+  }
+};
+
+template <int NQ>
+__global__ void __launch_bounds__(kThreads, 1) subblock_max_mv_kernel(
+    const __grid_constant__ CUtensorMap map, const int* __restrict__ row_docs,
     const __nv_bfloat16* __restrict__ queries, float* __restrict__ bmax,
     int* __restrict__ bcnt, long long n_sub, int d, int q, int sub,
-    long long n_valid, int m_max) {
-  __shared__ float qs[kQChunk * kDChunk];                    // [8, 128] f32
-  __shared__ __align__(16) __nv_bfloat16 tiles[kWarps * kRows * kPitch];
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  __nv_bfloat16* tile = tiles + warp * kRows * kPitch;
-
-  const long long s = (long long)blockIdx.x * kWarps + warp;
-  const long long row0 = s * sub;
-  // warp-uniform: only a live warp reads the corpus and reduces
-  const bool live = s < n_sub && row0 < n_valid;
-  if (s < n_sub && !live) {
-    // all-padding sub-block: padding scores 0, so max 0, count 0
-    for (int j = lane; j < q; j += 32) {
-      bmax[s * q + j] = 0.0f;
-      bcnt[s * q + j] = 0;
-    }
+    long long n_valid) {
+  extern __shared__ uint8_t raw[];
+  const int nk = (d + kBoxCols - 1) / kBoxCols;
+  const Smem s = carve(raw, nk, NQ);
+  const long long n_live = (n_valid + sub - 1) / sub;
+  // sub-blocks wholly past n_valid: padding scores 0, so max 0, count 0
+  for (long long i = n_live * q + (long long)blockIdx.x * blockDim.x +
+                     threadIdx.x;
+       i < n_sub * q; i += (long long)gridDim.x * blockDim.x) {
+    bmax[i] = 0.0f;
+    bcnt[i] = 0;
   }
-  // block-uniform, so no thread is left waiting at a barrier below
-  if ((long long)blockIdx.x * kWarps * sub >= n_valid) return;
-
-  // L = the rows just before row0 that belong to its doc (< m_max)
-  const int n_back = (m_max - 1 + kRows - 1) / kRows;  // block-uniform
-  long long lead_rows = 0;
-  if (live) {
-    const int lead = row_docs[row0];
-    for (int b = 0; b < n_back; ++b) {
-      const int t = b * kRows + lane;
-      const long long r = row0 - 1 - t;
-      const bool eq = t < m_max - 1 && r >= 0 && row_docs[r] == lead;
-      const unsigned m = __ballot_sync(kFull, eq);
-      if (m != kFull) {
-        lead_rows += __ffs(~m) - 1;  // leading run of equal ids
-        break;
-      }
-      lead_rows += kRows;
-    }
+  Walk w;
+  block_range(n_live, sub, &w.r0, &w.r1);
+  if (w.r0 >= w.r1) return;  // block-uniform
+  // the range starts inside a doc: one look-back tile of the 64 rows
+  // before it (r0 is a multiple of 64, and r0 < n_valid)
+  const bool look = w.r0 > 0 && row_docs[w.r0 - 1] == row_docs[w.r0];
+  w.first = look ? w.r0 - kTileRows : w.r0;
+  w.chunks = (q + NQ - 1) / NQ;
+  w.nk = nk;
+  init_barriers(s);
+  if (threadIdx.x >= kConsumers) {
+    if (threadIdx.x == kConsumers) produce(&map, s, w);
+  } else {
+    DocScan<NQ> epi;
+    epi.row_docs = row_docs;
+    epi.bmax = bmax;
+    epi.bcnt = bcnt;
+    epi.n_valid = n_valid;
+    epi.r0 = w.r0;
+    epi.r1 = w.r1;
+    epi.q = q;
+    epi.sub = sub;
+    epi.sims = reinterpret_cast<float*>(s.extra);
+    epi.docs = reinterpret_cast<int*>(
+        s.extra + kTileRows * DocScan<NQ>::kPitch * sizeof(float));
+    consume<NQ>(s, w, queries, q, d, epi);
   }
-  const long long lo_row = row0 - lead_rows;
-  const unsigned below_lane = (1u << lane) - 1u;          // lanes < lane
+}
 
-  for (int q0 = 0; q0 < q; q0 += kQChunk) {
-    const int nq = min(kQChunk, q - q0);
-    float best[kQChunk];
-    int cnt[kQChunk];
-    float carry_sum[kQChunk];
-    unsigned carry_seen = 0;  // bit j: the carried doc has a positive row
-    int carry_doc = -3;       // matches no row
-#pragma unroll
-    for (int j = 0; j < kQChunk; ++j) {
-      best[j] = 0.0f;
-      cnt[j] = 0;
-      carry_sum[j] = 0.0f;
-    }
-    for (int c = -n_back; c * kRows < sub; ++c) {
-      const long long base = row0 + (long long)c * kRows;
-      // warp-uniform: look-back chunks run only where they hold lead rows
-      const bool act = live && (c >= 0 || lead_rows > -(long long)kRows * (c + 1));
-      float acc[kQChunk];
-#pragma unroll
-      for (int j = 0; j < kQChunk; ++j) acc[j] = 0.0f;
-      for (int k0 = 0; k0 < d; k0 += kDChunk) {
-        const int dc = min(kDChunk, d - k0);
-        __syncthreads();  // every warp is done with the previous slice
-        for (int i = threadIdx.x; i < nq * dc; i += blockDim.x) {
-          const int j = i / dc;
-          const int kk = i - j * dc;
-          qs[j * kDChunk + kk] =
-              __bfloat162float(queries[(long long)(q0 + j) * d + k0 + kk]);
-        }
-        if (act) {
-          // coalesced copy of the chunk's needed rows into the tile
-          const int cpr = dc / 8;                      // 16-byte chunks a row
-          for (int i = lane; i < kRows * cpr; i += 32) {
-            const int r = i / cpr;
-            if (base + r < lo_row) continue;
-            const int col = (i - r * cpr) * 8;
-            *reinterpret_cast<uint4*>(tile + r * kPitch + col) =
-                *reinterpret_cast<const uint4*>(vecs + (base + r) * d + k0 +
-                                                col);
-          }
-        }
-        __syncthreads();
-        if (act) {
-          const __nv_bfloat16* row = tile + lane * kPitch;
-          for (int kk = 0; kk < dc; kk += 8) {
-            const uint4 raw = *reinterpret_cast<const uint4*>(row + kk);
-            const __nv_bfloat16* v8 =
-                reinterpret_cast<const __nv_bfloat16*>(&raw);
-            float v[8];
-#pragma unroll
-            for (int e = 0; e < 8; ++e) v[e] = __bfloat162float(v8[e]);
-#pragma unroll
-            for (int j = 0; j < kQChunk; ++j) {
-              if (j < nq) {
-                const float* qv = qs + j * kDChunk + kk;
-#pragma unroll
-                for (int e = 0; e < 8; ++e) acc[j] = fmaf(v[e], qv[e], acc[j]);
-              }
-            }
-          }
-        }
-      }
-      if (!act) continue;
-      const long long r = base + lane;
-      // rows before the lead run: -2; padding rows: -1; both score 0
-      const bool real = r >= lo_row && r < n_valid;
-      const int doc = real ? row_docs[r] : (r >= n_valid ? -1 : -2);
-      bool same[5];
-#pragma unroll
-      for (int k = 0; k < 5; ++k) {
-        const int off = 1 << k;
-        const int up = __shfl_up_sync(kFull, doc, off);
-        same[k] = lane >= off && up == doc;
-      }
-      const int prev = __shfl_up_sync(kFull, doc, 1);
-      const unsigned starts =
-          __ballot_sync(kFull, lane == 0 || prev != doc);
-      // first lane of this lane's doc run within the 32 rows
-      const int run0 = 31 - __clz(starts & (below_lane | (1u << lane)));
-      const unsigned in_run = below_lane & ~((1u << run0) - 1u);
-      const bool joins = run0 == 0 && doc == carry_doc;
-#pragma unroll
-      for (int j = 0; j < kQChunk; ++j) {
-        if (j < nq) {
-          float v = real ? fmaxf(acc[j], 0.0f) : 0.0f;
-          const bool pos = real && acc[j] > 0.0f;
-#pragma unroll
-          for (int k = 0; k < 5; ++k) {
-            const float up = __shfl_up_sync(kFull, v, 1 << k);
-            if (same[k]) v += up;
-          }
-          if (joins) v += carry_sum[j];
-          const unsigned pm = __ballot_sync(kFull, pos);
-          const bool seen = (pm & in_run) != 0 ||
-                            (joins && ((carry_seen >> j) & 1u));
-          if (c >= 0) {
-            float m = v;
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1) {
-              m = fmaxf(m, __shfl_xor_sync(kFull, m, off));
-            }
-            best[j] = fmaxf(best[j], m);
-            cnt[j] += __popc(__ballot_sync(kFull, pos && !seen));
-          }
-          carry_sum[j] = __shfl_sync(kFull, v, 31);
-          const bool seen_incl = __shfl_sync(kFull, pos || seen, 31);
-          carry_seen = (carry_seen & ~(1u << j)) | ((unsigned)seen_incl << j);
-        }
-      }
-      carry_doc = __shfl_sync(kFull, doc, 31);
-    }
-    if (live && lane < nq) {
-      // static register indexing: select this lane's query slot
-      float bv = 0.0f;
-      int cv = 0;
-#pragma unroll
-      for (int j = 0; j < kQChunk; ++j) {
-        if (j == lane) {
-          bv = best[j];
-          cv = cnt[j];
-        }
-      }
-      bmax[s * q + q0 + lane] = bv;
-      bcnt[s * q + q0 + lane] = cv;
-    }
-  }
+// the staged tile [64][NQ + 4] f32 and its 64 doc ids
+constexpr int kExtraPerQuery = kTileRows * sizeof(float);
+constexpr int kExtraFixed = kTileRows * (4 * sizeof(float) + sizeof(int));
+
+template <int NQ>
+int launch(const CUtensorMap& map, const void* row_docs, const void* queries,
+           void* bmax, void* bcnt, long long n_sub, int d, int q, int sub,
+           long long n_valid, cudaStream_t stream) {
+  const int nk = (d + kBoxCols - 1) / kBoxCols;
+  const long long n_live = (n_valid + sub - 1) / sub;
+  const long long unit = (sub % kTileRows) ? 2LL * sub : (long long)sub;
+  const size_t smem = smem_bytes(nk, NQ, NQ * kExtraPerQuery + kExtraFixed);
+  int grid = 0;
+  const int err = grid_size((const void*)subblock_max_mv_kernel<NQ>, smem,
+                            (n_live * sub + unit - 1) / unit, &grid);
+  if (err != 0) return err;
+  subblock_max_mv_kernel<NQ><<<grid, kThreads, smem, stream>>>(
+      map, (const int*)row_docs, (const __nv_bfloat16*)queries, (float*)bmax,
+      (int*)bcnt, n_sub, d, q, sub, n_valid);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// m_max (<= 64, checked by the wrapper) bounds a doc's rows; the look-back
+// tile covers any such doc, so the kernel needs no other use of it.
 extern "C" int knn_subblock_max_mv(
     const void* vecs, const void* row_docs, const void* queries, void* bmax,
     void* bcnt, long long n, int d, int q, int sub, long long n_valid,
     int m_max, void* stream) {
   const long long n_sub = n / sub;
-  const long long grid = (n_sub + kWarps - 1) / kWarps;
-  if (grid > 0) {
-    subblock_max_mv_kernel<<<(unsigned)grid, kWarps * 32, 0,
-                             (cudaStream_t)stream>>>(
-        (const __nv_bfloat16*)vecs, (const int*)row_docs,
-        (const __nv_bfloat16*)queries, (float*)bmax, (int*)bcnt, n_sub, d, q,
-        sub, n_valid, m_max);
+  if (n_sub <= 0 || q <= 0) return 0;
+  if (m_max < 1 || m_max > kTileRows) return (int)cudaErrorInvalidValue;
+  n_valid = n_valid < 0 ? 0 : (n_valid > n ? n : n_valid);
+  const int nk = (d + kBoxCols - 1) / kBoxCols;
+  const int nq = pick_chunk(q, nk, kExtraPerQuery, kExtraFixed);
+  if (nq == 0) return (int)cudaErrorInvalidValue;
+  CUtensorMap map;
+  const int err = corpus_map(&map, vecs, n, d);
+  if (err != 0) return err;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (nq) {
+    case 8:
+      return launch<8>(map, row_docs, queries, bmax, bcnt, n_sub, d, q, sub,
+                       n_valid, st);
+    case 16:
+      return launch<16>(map, row_docs, queries, bmax, bcnt, n_sub, d, q, sub,
+                        n_valid, st);
+    case 32:
+      return launch<32>(map, row_docs, queries, bmax, bcnt, n_sub, d, q, sub,
+                        n_valid, st);
+    default:
+      return launch<64>(map, row_docs, queries, bmax, bcnt, n_sub, d, q, sub,
+                        n_valid, st);
   }
-  return (int)cudaGetLastError();
 }

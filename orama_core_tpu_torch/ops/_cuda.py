@@ -10,7 +10,8 @@ root (git ignores ``build/``), with
 and bound with ``ctypes``: pointers and the stream travel as ``c_void_p``,
 every entry point returns ``cudaGetLastError()`` and ``check`` raises when
 it is not 0. ``build_all`` starts one ``nvcc`` per source at once, so a
-cold process pays the slowest build, not their sum.
+cold process pays the slowest build, not their sum. A library is rebuilt
+when its ``.cu`` or any shared header ``csrc/*.cuh`` is newer than it.
 
 ``LAUNCHES`` counts kernel launches per kernel; a wrapper adds one where it
 launches its kernel and nowhere else, so a run can show that its main path
@@ -20,6 +21,7 @@ went through the kernels. Nothing here runs when a module is imported.
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
@@ -102,9 +104,16 @@ def _paths(name: str):
     return os.path.join(CSRC, f"{name}.cu"), os.path.join(BUILD, f"lib{name}.so")
 
 
-def _fresh(name: str) -> bool:
-    src, lib = _paths(name)
-    return os.path.exists(lib) and os.path.getmtime(lib) >= os.path.getmtime(src)
+def _fresh(name: str, csrc: str = CSRC, build: str = BUILD) -> bool:
+    """True when ``lib<name>.so`` is newer than its ``.cu`` and than every
+    shared header (``csrc/*.cuh``) it may include."""
+    lib = os.path.join(build, f"lib{name}.so")
+    if not os.path.exists(lib):
+        return False
+    deps = [os.path.join(csrc, f"{name}.cu")] + glob.glob(
+        os.path.join(csrc, "*.cuh"))
+    built = os.path.getmtime(lib)
+    return all(built >= os.path.getmtime(p) for p in deps)
 
 
 def _start_build(name: str) -> subprocess.Popen:

@@ -49,6 +49,18 @@ def _pick_sub(block_rows: int, sub_rows: int) -> int:
     return sub
 
 
+# K2 and K6 keep a chunk of at least 8 queries resident in shared memory
+# beside a 64 KB ring of corpus tiles (csrc/knn_stream.cuh): 16 bytes a
+# column, so widths up to 8,192 fit (every registry width is <= 1,024)
+_STREAM_MAX_D = 8192
+
+
+def _aligned(queries: torch.Tensor) -> torch.Tensor:
+    """The queries as K2/K6 read them: rows in 16-byte loads, so the base
+    must be 16-byte aligned (a fresh copy where a view is not)."""
+    return queries.clone() if queries.data_ptr() % 16 else queries
+
+
 # -- K2: per-sub-block max / positive count -----------------------------------
 
 
@@ -78,12 +90,13 @@ def subblock_max(vecs: torch.Tensor, queries: torch.Tensor, sub: int,
     qn = queries.shape[0]
     if queries.shape[1] != d:
         raise ValueError("queries and vecs differ in dimension")
-    if d % 8 or sub % 32 or n % sub:
-        raise ValueError(f"K2 needs D % 8 == 0 and sub % 32 == 0 (D={d}, "
-                         f"sub={sub}, N={n})")
+    if d % 8 or d > _STREAM_MAX_D or sub % 32 or n % sub:
+        raise ValueError(f"K2 needs D % 8 == 0, D <= {_STREAM_MAX_D} and "
+                         f"sub % 32 == 0 (D={d}, sub={sub}, N={n})")
     if vecs.data_ptr() % 16:
-        raise ValueError("K2 reads the corpus in 16-byte chunks: vecs must "
-                         "start 16-byte aligned")
+        raise ValueError("K2 reads the corpus through a TMA tensor map: vecs "
+                         "must start 16-byte aligned")
+    queries = _aligned(queries)
     bmax = torch.empty(n // sub, qn, dtype=torch.float32, device=vecs.device)
     bcnt = torch.empty(n // sub, qn, dtype=torch.int32, device=vecs.device)
     lib = _cuda.lib("knn_subblock_max")
@@ -409,12 +422,15 @@ def subblock_max_mv(vecs: torch.Tensor, row_docs: torch.Tensor,
     qn = queries.shape[0]
     if queries.shape[1] != d or row_docs.shape[0] != n:
         raise ValueError("vecs, row_docs and queries disagree in shape")
-    if d % 8 or sub % 32 or n % sub or m_max < 1:
-        raise ValueError(f"K6 needs D % 8 == 0, sub % 32 == 0 and m_max >= 1"
-                         f" (D={d}, sub={sub}, N={n}, m_max={m_max})")
+    if (d % 8 or d > _STREAM_MAX_D or sub % 32 or n % sub
+            or not 1 <= m_max <= 64):
+        raise ValueError(f"K6 needs D % 8 == 0, D <= {_STREAM_MAX_D}, "
+                         f"sub % 32 == 0 and 1 <= m_max <= 64 (D={d}, "
+                         f"sub={sub}, N={n}, m_max={m_max})")
     if vecs.data_ptr() % 16:
-        raise ValueError("K6 reads the corpus in 16-byte chunks: vecs must "
-                         "start 16-byte aligned")
+        raise ValueError("K6 reads the corpus through a TMA tensor map: vecs "
+                         "must start 16-byte aligned")
+    queries = _aligned(queries)
     bmax = torch.empty(n // sub, qn, dtype=torch.float32, device=vecs.device)
     bcnt = torch.empty(n // sub, qn, dtype=torch.int32, device=vecs.device)
     lib = _cuda.lib("knn_subblock_max_mv")

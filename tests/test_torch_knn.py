@@ -130,45 +130,3 @@ def test_topk_stable_breaks_ties_toward_lower_index():
         np.testing.assert_array_equal(pi.numpy(), np.asarray(ri))
         np.testing.assert_array_equal(pv.numpy(), np.asarray(rv))
 
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("d", [384, 768, 1024])
-def test_kernels_match_plain_on_card(d):
-    """K2/K3/K5/K6 on the card against their plain versions at the
-    registry's embedding widths (run on an H100; chip_smoke.py checks them
-    at the engine's real shapes)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    rng = np.random.default_rng(5)
-    v = torch.tensor(rng.standard_normal((65536, d)) / np.sqrt(d),
-                     dtype=torch.bfloat16, device="cuda")
-    q = torch.tensor(rng.standard_normal((8, d)), dtype=torch.bfloat16,
-                     device="cuda")
-    bm, bc = port.subblock_max(v, q, 32, 60000)
-    pm, pc = port.subblock_max_plain(v, q, 32, 60000)
-    torch.testing.assert_close(bm, pm, rtol=0, atol=1e-4)
-    ids = port._tiered_subblock_topk(pm, 10).reshape(-1)
-    torch.testing.assert_close(
-        port.rescore_subblocks(v, q, ids, 10, 32),
-        port.rescore_subblocks_plain(v, q, ids, 10, 32), rtol=0, atol=1e-4,
-    )
-    # K5: exact integer sums and one f32 multiply, so exactly equal
-    from orama_core_tpu_torch.ops import quant
-
-    codes, scales = quant.quantize_int8(v.to(torch.float32))
-    q8, _ = quant.quantize_int8(q.to(torch.float32))
-    got = port.subblock_max_int8(codes, scales, q8, 32, 60000)
-    want = port.subblock_max_int8_plain(codes, scales, q8, 32, 60000)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    # K6: 1-7 chunk rows per doc, m_max = 8, engine padding (doc 0)
-    nch = rng.integers(1, 8, 16000)
-    docs = np.repeat(np.arange(16000, dtype=np.int32), nch)[:60000]
-    row_docs = np.zeros(65536, np.int32)
-    row_docs[:len(docs)] = docs
-    rd = torch.tensor(row_docs, device="cuda")
-    got = port.subblock_max_mv(v, rd, q, 32, len(docs), 8)
-    want = port.subblock_max_mv_plain(v, rd, q, 32, len(docs), 8)
-    # f32 sums of at most 8 non-negative terms in another order
-    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
-    # a count may differ only where a sim within rounding of 0 changes sign
-    assert int((got[1] != want[1]).sum()) <= 2
