@@ -18,13 +18,18 @@ all started together), then runs, failing at the first phase that fails:
    of 1-7 384-d vector rows each (~1M rows, as long texts split at the
    embedding model's 512-token budget give);
 3. each kernel against its plain torch version on those collections'
-   tensors (K1 over a ~1M-posting plan; K2 over the padded 4,194,304 x
-   384 bf16 corpus with n_valid = 1,000,000 and Q = 8, and at D = 768 and
-   1024 on 262,144 rows; K3 on the rows K2 selects; K4 over the
-   ~20M-position phrase stream; K5 over the int8 codes of the same corpus
-   and at D = 768 and 1024; K6 over the chunked corpus at m_max = 8, and
-   at m_max = 64 on docs of up to 64 rows), timed with CUDA events, with
-   the card's least time for the same work beside it;
+   tensors (K1 over a ~1M-posting plan, also timed with the plan padded
+   to its PLAN_BUCKETS bucket; K2 over the padded 4,194,304 x 384 bf16
+   corpus with n_valid = 1,000,000 and Q = 8, and at D = 768 and 1024 on
+   262,144 rows; K3 on the rows K2 selects; K4 over the ~20M-position
+   phrase stream at the engine's 4-span bucket and at 32 real spans; K5
+   over the int8 codes of the same corpus and at D = 768 and 1024; K6
+   over the chunked corpus at m_max = 8, and at m_max = 64 on docs of up
+   to 64 rows), timed with CUDA events, with the card's least time for
+   the same work beside it; and K1's parts, from probes built beside the
+   kernels (one ``{"k1_probe": ...}`` JSON line): the score vector's fill
+   alone, the K1 design of commit 425a76e with stores for its atomics, a
+   bare scatter of the same doc ids, and one grid-wide barrier;
 4. the engine: 32 queries each of fulltext, phrase, hybrid RRF,
    unfiltered vector (the fused kNN) and filtered + faceted vector on the
    exact collection, unfiltered vector and hybrid RRF on the int8 one,
@@ -275,8 +280,9 @@ def kernel_record(name, max_abs_err, ms, plain_ms, bytes_moved, ops,
     }
 
 
-def phase_kernels(reader, rng):
-    """Each kernel against its plain version on the collection's tensors."""
+def phase_kernels(reader, rng, probe_lib):
+    """Each kernel against its plain version on the collection's tensors;
+    ``probe_lib``: the built K1 probes (build_kernels_and_probes)."""
     import torch
 
     from orama_core_tpu_torch.ops import bm25, knn
@@ -291,34 +297,45 @@ def phase_kernels(reader, rng):
     # K1: four consecutive light-term spans (past the dense head rows) of
     # ~1M postings each; one is checked, all four are timed in turn (their
     # ~80 MB exceed the L2, as a stream of different query terms would).
-    # The scalars live on the card, as the fused program passes them.
+    # The scalars live on the card, as the fused program passes them. The
+    # record's plans hold the blocks the spans need; the same spans are
+    # also timed with their plans padded to a PLAN_BUCKETS bucket, as the
+    # engine builds them.
+    from orama_core_tpu_torch.utils import bucket_pad
+
     d_docs, d_tf, d_ni, d_plens = reader._device.string_arrays(c)
     ts = c.term_starts
     scal = [torch.tensor(x, dtype=torch.float32, device="cuda")
             for x in (1.0, gi.avgdl, float(gi.total_documents))]
-    calls, n_posts, n_blocks = [], [], []
+    calls, padded, spans_k1, n_posts, n_blocks = [], [], [], [], []
     t0 = 64
     for _ in range(4):
         t1 = int(np.searchsorted(ts, ts[t0] + 1_000_000))
         p_lo, p_len = [int(ts[t0])], [int(ts[t1] - ts[t0])]
-        nb = bm25.aligned_blocks_needed(p_len)
-        plan = [torch.as_tensor(a, device="cuda")
-                for a in bm25.build_block_plan_aligned(p_lo, p_len, nb)]
-        calls.append(((d_docs, d_tf, d_ni, d_plens, *plan, *scal),
-                      dict(n_docs=cap, n_blocks=nb)))
+        for nb, into in ((bm25.aligned_blocks_needed(p_len), calls),
+                         (bucket_pad(bm25.aligned_blocks_needed(p_len),
+                                     bm25.PLAN_BUCKETS), padded)):
+            plan = [torch.as_tensor(a, device="cuda")
+                    for a in bm25.build_block_plan_aligned(p_lo, p_len, nb)]
+            into.append(((d_docs, d_tf, d_ni, d_plens, *plan, *scal),
+                         dict(n_docs=cap, n_blocks=nb)))
+        spans_k1.append((p_lo[0], p_len[0]))
         n_posts.append(p_len[0])
-        n_blocks.append(nb)
+        n_blocks.append(calls[-1][1]["n_blocks"])
         t0 = t1
-    args, kw = calls[0]
-    got = bm25.bm25_scores_blocked_aligned(*args, **kw)
-    want = bm25.bm25_scores_blocked_aligned_plain(*args, **kw)
-    torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    require(torch.allclose(got, want, rtol=1e-5, atol=1e-6),
-            f"K1 disagrees with its plain version: max err {err}")
-    require(int((got > 0).sum()) > 100_000, "K1 scored too few docs")
+    err = 0.0
+    for args, kw in (calls[0], padded[0]):
+        got = bm25.bm25_scores_blocked_aligned(*args, **kw)
+        want = bm25.bm25_scores_blocked_aligned_plain(*args, **kw)
+        torch.cuda.synchronize()
+        err = max(err, (got - want).abs().max().item())
+        require(torch.allclose(got, want, rtol=1e-5, atol=1e-6),
+                f"K1 disagrees with its plain version at {kw}: max err {err}")
+        require(int((got > 0).sum()) > 100_000, "K1 scored too few docs")
     ms = time_ms([lambda a=a, k=k: bm25.bm25_scores_blocked_aligned(*a, **k)
                   for a, k in calls], 40)
+    pad_ms = time_ms([lambda a=a, k=k: bm25.bm25_scores_blocked_aligned(
+        *a, **k) for a, k in padded], 40)
     pms = time_ms([lambda a=a, k=k: bm25.bm25_scores_blocked_aligned_plain(
         *a, **k) for a, k in calls], 8)
     n_post = float(np.mean(n_posts))
@@ -326,7 +343,12 @@ def phase_kernels(reader, rng):
         "bm25_scan", err, ms, pms,
         bytes_moved=n_post * 16 + np.mean(n_blocks) * 12 + cap * 4,
         ops=n_post * 20, peak_ops=F32_FLOPS))
-    log(f"K1 ok: {n_posts} postings, err {err:.3g}, {ms:.4f} ms")
+    log(f"K1 ok: {n_posts} postings, err {err:.3g}, {ms:.4f} ms; plans "
+        f"padded to buckets {[k['n_blocks'] for _a, k in padded]} (from "
+        f"{n_blocks} blocks): {pad_ms:.4f} ms")
+    probe = k1_probes(probe_lib, calls, spans_k1, d_docs, cap)
+    probe.update(k1_ms=ms, k1_padded_ms=pad_ms, postings=n_posts)
+    print(json.dumps({"k1_probe": probe}), flush=True)
 
     # K2: the padded corpus, n_valid real rows, Q = 8
     vf = reader._vector[1]
@@ -381,30 +403,192 @@ def phase_kernels(reader, rng):
         ops=2 * nsel * 32 * d, peak_ops=BF16_FLOPS))
     log(f"K3 ok: {nsel} sub-blocks, err {err:.3g}, {ms:.4f} ms")
 
-    # K4: the whole phrase stream, spans of two Zipf-drawn terms
-    dw, tw, bits = reader._device.phrase_stream_arrays(c)
+    # K4: the whole phrase stream, spans of two Zipf-drawn terms in the
+    # engine's 4-span bucket (the record); then 32 real spans, the longest
+    # phrase a query can ask for
+    tw, bits, bounds = reader._device.phrase_stream_arrays(c, cap)
     tids = (rng.pareto(1.2, 2) * 50).astype(int) % N_TERMS
     spans = torch.tensor([[t, t + 1] for t in tids] + [[0, 0]] * 2,
                          dtype=torch.int32, device="cuda")
-    a1, s1 = bm25.phrase_counts(bits, tw, dw, spans, cap)
-    a2, s2 = bm25.phrase_counts_plain(bits, tw, dw, spans, cap)
-    torch.cuda.synchronize()
-    require(torch.equal(a1, a2) and torch.equal(s1, s2),
-            "K4 counts differ from the plain version")
-    require(int(a1.sum()) > 0, "K4 counted nothing")
-    ms = time_ms(lambda: bm25.phrase_counts(bits, tw, dw, spans, cap), 20)
-    pms = time_ms(lambda: bm25.phrase_counts_plain(bits, tw, dw, spans, cap), 3)
+    tids32 = rng.choice(N_TERMS, 32, replace=False)
+    spans32 = torch.tensor([[t, t + 1] for t in tids32], dtype=torch.int32,
+                           device="cuda")
+    for sp in (spans, spans32):
+        a1, s1 = bm25.phrase_counts(bits, tw, bounds, sp, cap)
+        a2, s2 = bm25.phrase_counts_plain(bits, tw, bounds, sp, cap)
+        torch.cuda.synchronize()
+        require(torch.equal(a1, a2) and torch.equal(s1, s2),
+                f"K4 counts differ from the plain version at "
+                f"{sp.shape[0]} spans")
+        require(int(a1.sum()) > 0, "K4 counted nothing")
+    a1, _s1 = bm25.phrase_counts(bits, tw, bounds, spans, cap)
+    ms = time_ms(lambda: bm25.phrase_counts(bits, tw, bounds, spans, cap), 20)
+    ms32 = time_ms(lambda: bm25.phrase_counts(bits, tw, bounds, spans32, cap),
+                   20)
+    pms = time_ms(lambda: bm25.phrase_counts_plain(bits, tw, bounds, spans,
+                                                   cap), 3)
     # bytes it must move: the bits and term id of every position, the doc
     # id of each counted group head only (one per anyorder count), the
     # spans, and the two int32[cap] counters
-    pp = dw.numel()
+    pp = bits.numel()
     heads = int(a1.sum())
     out.append(kernel_record(
         "phrase_counts", 0.0, ms, pms,
         bytes_moved=pp * 5 + heads * 4 + spans.numel() * 4 + cap * 8,
         ops=pp * 4 * spans.shape[0], peak_ops=F32_FLOPS))
-    log(f"K4 ok: {pp} positions, exact, {ms:.4f} ms")
+    log(f"K4 ok: {pp} positions, exact at 4 and 32 spans, {ms:.4f} ms "
+        f"(4 spans, 2 real), {ms32:.4f} ms (32 real spans)")
     return out
+
+
+# Measurement probes of K1's parts (not kernels of the port): the K1 design
+# of commit 425a76e (one thread per posting, a 1024-thread block per plan
+# block) with its atomicAdd replaced by a coalesced store, a bare scatter
+# of the same postings' doc ids (atomicAdd of 1.0, no other loads), and
+# one grid-wide barrier in a cooperative launch as large as K1's grid.
+K1_PROBE_SRC = r"""
+#include <cuda_runtime.h>
+
+__global__ void k1_store(const int* docs, const float* tf, const float* ni,
+                         const float* lens, const int* blk, const int* lo,
+                         const int* hi, float boost, float avgdl, float nfd,
+                         float* out) {
+  const int b = blockIdx.x;
+  const int h = hi[b];
+  const int j = lo[b] + threadIdx.x;
+  if (j >= h) return;
+  const long long p = (long long)blk[b] * 1024 + j;
+  const float t = tf[p], n = ni[p];
+  const float idf = log1pf(fmaxf((nfd - n + 0.5f) / (n + 0.5f), 0.0f));
+  const float den = t + 1.2f * (0.25f + 0.75f * lens[p] / fmaxf(avgdl, 1e-9f));
+  // the doc id is still loaded, as the atomic's address was
+  out[p] = idf * boost * t * 2.2f / fmaxf(den, 1e-9f) + (docs[p] < 0 ? 1.f : 0.f);
+}
+
+__global__ void scatter_ones(const int* docs, long long p0, long long n,
+                             float* out) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) atomicAdd(&out[docs[p0 + i]], 1.0f);
+}
+
+__global__ void grid_barrier(unsigned* count, unsigned target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(count, 1u);
+    while (atomicAdd(count, 0u) < target) {
+    }
+  }
+  __syncthreads();
+}
+
+extern "C" int probe_k1_store(const void* docs, const void* tf,
+                              const void* ni, const void* lens,
+                              const void* blk, const void* lo, const void* hi,
+                              float boost, float avgdl, float nfd, void* out,
+                              int n_blocks, void* stream) {
+  k1_store<<<n_blocks, 1024, 0, (cudaStream_t)stream>>>(
+      (const int*)docs, (const float*)tf, (const float*)ni,
+      (const float*)lens, (const int*)blk, (const int*)lo, (const int*)hi,
+      boost, avgdl, nfd, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int probe_scatter(const void* docs, long long p0, long long n,
+                             void* out, void* stream) {
+  scatter_ones<<<(unsigned)((n + 255) / 256), 256, 0, (cudaStream_t)stream>>>(
+      (const int*)docs, p0, n, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// a barrier across SMs x resident 256-thread blocks; `count` only grows
+extern "C" int probe_barrier(void* count, void* stream) {
+  static unsigned grid = 0, gen = 0;
+  if (!grid) {
+    int dev = 0, sms = 0, occ = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, grid_barrier, 256, 0);
+    grid = (unsigned)(sms * occ);
+  }
+  ++gen;
+  unsigned* c = (unsigned*)count;
+  unsigned target = gen * grid;
+  void* args[] = {&c, &target};
+  return (int)cudaLaunchCooperativeKernel((void*)grid_barrier, grid, 256,
+                                          args, 0, (cudaStream_t)stream);
+}
+"""
+
+
+def build_kernels_and_probes():
+    """Every kernel library (``_cuda.build_all``) and the K1 probes'
+    library, one nvcc per source, all started together; returns the
+    probes' path."""
+    from orama_core_tpu_torch.ops import _cuda
+
+    out = os.path.join(ROOT, "build", "k1_probe")
+    os.makedirs(out, exist_ok=True)
+    src = os.path.join(out, "k1_probe.cu")
+    with open(src, "w", encoding="utf-8") as f:
+        f.write(K1_PROBE_SRC)
+    lib = os.path.join(out, "libk1_probe.so")
+    proc = subprocess.Popen([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", lib, src],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    try:
+        _cuda.build_all(force=True)
+    finally:
+        log_out, _ = proc.communicate()
+    require(proc.returncode == 0, f"the K1 probes did not build:\n{log_out}")
+    return lib
+
+
+def k1_probes(probe_lib, calls, spans_k1, d_docs, cap):
+    """Device ms of K1's parts on the record's four plans, in turn: the
+    score vector's fill alone, the earlier K1 design with stores for its
+    atomics, a bare scatter of the same doc ids, one grid-wide barrier."""
+    import ctypes
+
+    import torch
+
+    from orama_core_tpu_torch.ops import _cuda
+
+    lib = ctypes.CDLL(probe_lib)
+    P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    lib.probe_k1_store.argtypes = [P] * 7 + [F] * 3 + [P, I, P]
+    lib.probe_scatter.argtypes = [P, L, L, P, P]
+    lib.probe_barrier.argtypes = [P, P]
+    for fn in (lib.probe_k1_store, lib.probe_scatter, lib.probe_barrier):
+        fn.restype = ctypes.c_int
+    scratch = torch.empty(d_docs.numel(), dtype=torch.float32, device="cuda")
+    sink = torch.zeros(cap, dtype=torch.float32, device="cuda")
+    count = torch.zeros(1, dtype=torch.int32, device="cuda")
+    scal = [float(x) for x in calls[0][0][7:10]]  # read once, not per call
+
+    def store(args, kw):
+        _cuda.check(lib.probe_k1_store(
+            *[t.data_ptr() for t in args[:7]], *scal, scratch.data_ptr(),
+            kw["n_blocks"], _cuda.stream()), "probe_k1_store")
+
+    def scatter(p0, n):
+        _cuda.check(lib.probe_scatter(d_docs.data_ptr(), p0, n,
+                                      sink.data_ptr(), _cuda.stream()),
+                    "probe_scatter")
+
+    res = {
+        "memset_ms": time_ms(lambda: torch.zeros(cap, dtype=torch.float32,
+                                                 device="cuda"), 40),
+        "store_ms": time_ms([lambda a=a, k=k: store(a, k) for a, k in calls],
+                            40),
+        "scatter_ms": time_ms([lambda p=p, n=n: scatter(p, n)
+                               for p, n in spans_k1], 40),
+        "barrier_ms": time_ms(lambda: _cuda.check(lib.probe_barrier(
+            count.data_ptr(), _cuda.stream()), "probe_barrier"), 40),
+    }
+    log(f"K1 probes: {res}")
+    return res
+
 
 
 def phase_kernels_int8_mv(reader8, reader_mv, rng):
@@ -901,10 +1085,14 @@ def main() -> int:
         f"CUDA {torch.version.cuda}")
     require(tuple(cap) == (9, 0), f"needs capability (9, 0), got {cap}")
     t0 = time.perf_counter()
-    _cuda.build_all(force=True)
+    sweep_only = "--sweep-only" in sys.argv[1:]
+    if sweep_only:
+        _cuda.build_all(force=True)
+    else:
+        probe_lib = build_kernels_and_probes()
     log(f"built {len(_cuda.SIGNATURES)} kernels in "
         f"{time.perf_counter() - t0:.1f} s")
-    if "--sweep-only" in sys.argv[1:]:
+    if sweep_only:
         rows = phase_q_sweep(*sweep_corpora(), np.random.default_rng(42))
         print(json.dumps({"q_sweep": rows, "card": card}), flush=True)
         return 0
@@ -930,7 +1118,7 @@ def main() -> int:
             f"{(torch.cuda.memory_allocated() - before) / 2**30:.2f} GiB")
         readers[name] = reader
     rng = np.random.default_rng(42)
-    records = phase_kernels(readers["exact"], rng)
+    records = phase_kernels(readers["exact"], rng, probe_lib)
     records += phase_kernels_int8_mv(readers["int8"], readers["chunked"], rng)
     for rec in records:
         print(json.dumps(rec), flush=True)

@@ -6,22 +6,45 @@
 // plan and writes per-posting contributions; the per-doc segment_sum ran
 // outside the kernel in XLA.
 //
-// Design: one CUDA block per plan block, one thread per posting of the
-// block's in-block window [lo, hi). A thread reads docs/tf/ni/lens of its
-// posting, computes the same float expression as the TPU kernel and adds
-// it to scores[doc] with atomicAdd, so the segment_sum is fused and the
-// contributions never reach device memory. Pad plan blocks (hi == 0) exit
-// at once. Sums then depend on the order of the atomics: callers compare
-// with a float tolerance.
-//
 // Bound on this card: bytes. Each posting moves 16 B in (four 4-byte
-// columns) and one 4-byte atomic out for ~20 flops, far below the H100's
-// ~295 flops/byte ridge.
+// columns) and one 4-byte add out for ~20 flops, far below the H100's
+// ~295 flops/byte ridge. The adds go to scattered docs of a 4 MB score
+// vector that stays in the L2.
 //
-// Left for a later PR: the atomics serialise on Zipf-heavy docs and the
-// scattered read-modify-writes cost a sector each; a sorted-run reduction
-// (postings are doc-sorted within a term) or a shared-memory histogram for
-// dense doc ranges would cut both.
+// Design: a persistent grid (4 blocks of 256 threads per SM, fewer when
+// the plan has fewer 128-posting chunks than warps; in probes 4 ran faster
+// than 1, 2 or the 8 that fit). The plan's units are
+// (plan block, 128-posting chunk) pairs, 8 per plan block, and warp w
+// takes units w, w + W, w + 2W, ... (W warps in all). Each lane fetches the
+// plan entry (block index, lo, hi) of one of the warp's next 32 units in a
+// single round trip, and the entries travel to the warp by shuffles. A
+// lane then loads 4 consecutive postings of a chunk with one 16-byte load
+// per column (int4 docs, float4 tf, ni, lens; plan blocks are 1024-aligned,
+// so the loads are aligned), and the warp issues the loads of up to four
+// chunks before the first chunk's adds. Masks apply only where a chunk
+// holds the [lo, hi) edges. The engine pads the plan to a bucket of
+// PLAN_BUCKETS with blocks of hi == 0 after every real block
+// (build_block_plan_aligned), so the first pad a warp meets ends its walk:
+// pad blocks cost one plan load, not a launch of threads that exit.
+//
+// The adds are atomicAdd with the result unused, which compiles to RED
+// (REDG.E.ADD.F32.FTZ.RN.STRONG.GPU in cuobjdump -sass: a fire-and-forget
+// reduction in the L2), so the warp never waits on them. Sums depend on
+// the order of the adds: callers compare with a float tolerance. Postings
+// of one term never share a doc, so reducing sorted runs before the adds
+// would save nothing. The card's rate for such scattered adds sets this
+// kernel's floor: a bare scatter of the same ~1M doc ids with atomicAdd of
+// 1.0 takes most of this kernel's time by itself (chip_smoke.py's K1 probe
+// line; PERF.md).
+//
+// The scores are zeroed by the wrapper (torch.zeros) right before the
+// launch: the fill of the 4 MB vector measured below one grid-wide
+// barrier on the card (the same probe line), so a cooperative launch that
+// folds it in would not pay. The kernel is launched as a programmatic
+// dependent of that fill: its plan and posting loads overlap the fill,
+// and griddepcontrol.wait holds each warp's first add until the fill is
+// complete. Everything else the kernel reads was written before the fill
+// began, as the stream orders the fill itself behind it.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -29,42 +52,126 @@
 namespace {
 
 constexpr int kBlock = 1024;  // postings per aligned plan block
+constexpr int kChunk = 128;   // postings per warp step (32 lanes x 4)
+constexpr int kChunks = kBlock / kChunk;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kAhead = 4;     // chunks whose loads a warp issues at once
 constexpr float kK1 = 1.2f;
 constexpr float kB = 0.75f;
+constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void bm25_scan_kernel(
-    const int* __restrict__ docs, const float* __restrict__ tf,
-    const float* __restrict__ ni, const float* __restrict__ lens,
+__global__ void __launch_bounds__(kThreads) bm25_scan_kernel(
+    const int4* __restrict__ docs, const float4* __restrict__ tf,
+    const float4* __restrict__ ni, const float4* __restrict__ lens,
     const int* __restrict__ blk, const int* __restrict__ lo,
-    const int* __restrict__ hi, const float* __restrict__ params,
-    float* __restrict__ scores) {
-  const int b = blockIdx.x;
-  const int h = hi[b];
-  const int j = lo[b] + threadIdx.x;
-  if (j >= h) return;
-  const long long p = (long long)blk[b] * kBlock + j;
-  const float boost = params[0];
-  const float avgdl = params[1];
-  const float nfd = params[2];
-  const float t = tf[p];
-  const float n = ni[p];
-  const float idf = log1pf(fmaxf((nfd - n + 0.5f) / (n + 0.5f), 0.0f));
-  const float den = t + kK1 * (1.0f - kB + kB * lens[p] / fmaxf(avgdl, 1e-9f));
-  const float contrib = idf * boost * t * (kK1 + 1.0f) / fmaxf(den, 1e-9f);
-  atomicAdd(&scores[docs[p]], contrib);
+    const int* __restrict__ hi, const float* __restrict__ p_boost,
+    const float* __restrict__ p_avgdl, const float* __restrict__ p_nfd,
+    float boost, float avgdl, float nfd, float* __restrict__ scores,
+    int n_blocks) {
+  // a scalar lives on the card (the fused program's staging) or travels
+  // as a kernel argument
+  if (p_boost) boost = *p_boost;
+  if (p_avgdl) avgdl = *p_avgdl;
+  if (p_nfd) nfd = *p_nfd;
+  const float avgdl_c = fmaxf(avgdl, 1e-9f);
+  const int lane = threadIdx.x & 31;
+  const long long n_warps = (long long)gridDim.x * kWarps;
+  const long long w = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const long long n_units = (long long)n_blocks * kChunks;
+
+  for (long long u0 = w; u0 < n_units; u0 += 32 * n_warps) {
+    // lane i: the plan entry of unit u0 + i * n_warps
+    const long long my_u = u0 + lane * n_warps;
+    int pb = 0, pl = 0, ph = 0;
+    if (my_u < n_units) {
+      const int b = (int)(my_u / kChunks);
+      pb = blk[b];
+      pl = lo[b];
+      ph = hi[b];
+    }
+    // units up to the first pad block (hi == 0): real blocks come first
+    const unsigned live = __ballot_sync(kFull, my_u < n_units && ph > 0);
+    const int n_live = __ffs(~live) - 1 < 0 ? 32 : __ffs(~live) - 1;
+    for (int j0 = 0; j0 < n_live; j0 += kAhead) {
+      int4 d[kAhead];
+      float4 t[kAhead], n[kAhead], l[kAhead];
+      int off[kAhead], elo[kAhead], ehi[kAhead];
+#pragma unroll
+      for (int r = 0; r < kAhead; ++r) {
+        const int j = min(j0 + r, 31);
+        const int b_ = __shfl_sync(kFull, pb, j);
+        elo[r] = __shfl_sync(kFull, pl, j);
+        ehi[r] = j0 + r < n_live ? __shfl_sync(kFull, ph, j) : 0;
+        const long long u = u0 + (long long)j * n_warps;
+        off[r] = (int)(u % kChunks) * kChunk + 4 * lane;
+        if (off[r] < ehi[r] && off[r] + 4 > elo[r]) {
+          const long long q = ((long long)b_ * kBlock + off[r]) >> 2;
+          d[r] = docs[q];
+          t[r] = tf[q];
+          n[r] = ni[q];
+          l[r] = lens[q];
+        }
+      }
+      // the fill of the scores (the kernel before this one) is complete
+      asm volatile("griddepcontrol.wait;" ::: "memory");
+#pragma unroll
+      for (int r = 0; r < kAhead; ++r) {
+        if (!(off[r] < ehi[r] && off[r] + 4 > elo[r])) continue;
+        const int dd[4] = {d[r].x, d[r].y, d[r].z, d[r].w};
+        const float tt[4] = {t[r].x, t[r].y, t[r].z, t[r].w};
+        const float nn[4] = {n[r].x, n[r].y, n[r].z, n[r].w};
+        const float ll[4] = {l[r].x, l[r].y, l[r].z, l[r].w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int jj = off[r] + e;
+          if (jj < elo[r] || jj >= ehi[r]) continue;
+          const float idf = log1pf(
+              fmaxf((nfd - nn[e] + 0.5f) / (nn[e] + 0.5f), 0.0f));
+          const float den = tt[e] + kK1 * (1.0f - kB + kB * ll[e] / avgdl_c);
+          atomicAdd(&scores[dd[e]],
+                    idf * boost * tt[e] * (kK1 + 1.0f) / fmaxf(den, 1e-9f));
+        }
+      }
+    }
+    if (n_live < 32) break;  // a pad block (or the plan's end) was reached
+  }
 }
+
+constexpr int kBlocksPerSm = 4;
+int g_grid_cap = 0;  // SMs x kBlocksPerSm, read once
 
 }  // namespace
 
-extern "C" int bm25_scan(
-    const void* docs, const void* tf, const void* ni, const void* lens,
-    const void* blk, const void* lo, const void* hi, const void* params,
-    void* scores, int n_blocks, void* stream) {
-  if (n_blocks > 0) {
-    bm25_scan_kernel<<<n_blocks, kBlock, 0, (cudaStream_t)stream>>>(
-        (const int*)docs, (const float*)tf, (const float*)ni,
-        (const float*)lens, (const int*)blk, (const int*)lo, (const int*)hi,
-        (const float*)params, (float*)scores);
+extern "C" int bm25_scan(const void* docs, const void* tf, const void* ni,
+                         const void* lens, const void* blk, const void* lo,
+                         const void* hi, const void* p_boost,
+                         const void* p_avgdl, const void* p_nfd, float boost,
+                         float avgdl, float nfd, void* scores, int n_blocks,
+                         void* stream) {
+  if (n_blocks <= 0) return (int)cudaGetLastError();
+  if (g_grid_cap == 0) {
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    const int err = (int)cudaGetLastError();
+    if (err) return err;
+    g_grid_cap = sms * kBlocksPerSm;
   }
-  return (int)cudaGetLastError();
+  // one warp per plan block's 8 chunks at most
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_blocks < g_grid_cap ? n_blocks : g_grid_cap);
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, bm25_scan_kernel, (const int4*)docs, (const float4*)tf,
+      (const float4*)ni, (const float4*)lens, (const int*)blk, (const int*)lo,
+      (const int*)hi, (const float*)p_boost, (const float*)p_avgdl,
+      (const float*)p_nfd, boost, avgdl, nfd, (float*)scores, n_blocks);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }

@@ -247,12 +247,15 @@ class _DeviceCache:
             del self._store[k]
         return self._get(s, key, build)
 
-    def phrase_stream_arrays(self, s: CommittedStringIndex):
-        """K4's commit-static input: (docs, terms, bits) of every position
-        of the field, sorted once per generation by (doc, pos) — stable,
-        as the reference's ``lax.sort`` — with the group bits of the
-        sorted stream. The reference's window meta (w_base, W, wsub) is
-        not built: K4 counts per doc without windows."""
+    def phrase_stream_arrays(self, s: CommittedStringIndex, cap: int):
+        """K4's commit-static input: (terms, bits, bounds). ``terms`` and
+        ``bits`` cover every position of the field, sorted once per
+        generation by (doc, pos) — stable, as the reference's
+        ``lax.sort`` — with the group bits of the sorted stream;
+        ``bounds`` int32[cap + 1] is the stream's per-doc CSR, built on
+        the device from the sorted doc column, which is then dropped:
+        nothing else reads it. The reference's window meta (w_base, W,
+        wsub) is not built: K4 counts per doc without windows."""
 
         def build():
             steps = self.cfg.posting_bucket_steps
@@ -274,9 +277,23 @@ class _DeviceCache:
             d_dev, p_dev, t_dev = bm25_ops.sort_phrase_stream(
                 self.put(d_col), self.put(p_col), self.put(t_col)
             )
-            return d_dev, t_dev, bm25_ops.phrase_static_bits(d_dev, p_dev)
+            # bounds over the docs the stream holds; a larger capacity
+            # only appends empty docs (phrase_bounds below)
+            n_held = int(pos_doc.max()) + 1 if pp else 0
+            return (t_dev, bm25_ops.phrase_static_bits(d_dev, p_dev),
+                    bm25_ops.stream_doc_bounds(d_dev, n_held))
 
-        return self._get(s, "phrase", build)
+        terms, bits, held = self._get(s, "phrase", build)
+        key = ("phrase_bounds", cap)
+        self._evict_variants(s, "phrase_bounds", key)
+
+        def bounds():
+            n_held = held.shape[0] - 1
+            if cap <= n_held:
+                return held[:cap + 1]
+            return torch.cat([held, held[-1:].expand(cap - n_held)])
+
+        return terms, bits, self._get(s, key, bounds)
 
     # vector -----------------------------------------------------------------
 
@@ -982,13 +999,15 @@ class CollectionReader:
                         spans_a = put(self._phrase_spans(token_spans, n_surf))
                         # reference gate collection_read.py:1617-1619: the
                         # windowed contract (K4), always; K4 needs no
-                        # positions or windows once the bits are built
-                        dw, tw, pbits = self._device.phrase_stream_arrays(
-                            committed
+                        # doc ids, positions or windows once the bits and
+                        # the per-doc bounds are built
+                        tw, pbits, pbounds = (
+                            self._device.phrase_stream_arrays(committed, cap)
                         )
                         boost_by_doc = bm25_ops.phrase_boost_docmajor_windowed(
-                            dw, None, tw, None, spans_a, field_boost,
+                            None, None, tw, None, spans_a, field_boost,
                             n_docs=cap, W=0, wsub=0, bits=pbits,
+                            bounds=pbounds,
                         )
                         raw = raw * boost_by_doc
                     if masked:
@@ -1467,12 +1486,12 @@ class CollectionReader:
         d_docs, d_tf, d_ni, d_plens = self._device.string_arrays(committed)
 
         n_sp = 0
-        ph_docs = ph_terms = ph_bits = None
+        ph_terms = ph_bits = ph_bounds = None
         if phrase:
             # reference gate collection_read.py:3310-3313: the windowed
             # contract (K4), always; its window arguments go unused
-            ph_docs, ph_terms, ph_bits = self._device.phrase_stream_arrays(
-                committed
+            ph_terms, ph_bits, ph_bounds = (
+                self._device.phrase_stream_arrays(committed, cap)
             )
             spans_a = self._phrase_spans(token_spans, n_surf)
             n_sp = spans_a.shape[0]
@@ -1492,7 +1511,7 @@ class CollectionReader:
         fdev = (
             d_docs, d_tf, d_ni, d_plens,
             dense_rows if use_dense else None,
-            ph_docs, None, ph_terms, None, None, ph_bits,
+            None, None, ph_terms, ph_bounds, None, ph_bits,
         )
         fstat = (nb, phrase, use_dense, phrase, 0, 0, n_sp, n_dsel)
         return fdev, ihost, fhost, fstat, window_out
@@ -1764,7 +1783,7 @@ class CollectionReader:
             c = sf.committed
             if c.n_terms:
                 self._device.string_arrays(c)
-                self._device.phrase_stream_arrays(c)
+                self._device.phrase_stream_arrays(c, cap)
                 if sf.uncommitted.is_empty:
                     gi = c.global_info()
                     self._device.dense_term_rows(c, cap, gi.avgdl)

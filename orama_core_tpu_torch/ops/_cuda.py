@@ -55,11 +55,14 @@ _libs: Dict[str, ctypes.CDLL] = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 # argument types of each library's entry points
 SIGNATURES: Dict[str, Dict[str, List]] = {
     "bm25_scan": {
-        # docs, tf, ni, lens, blk, lo, hi, params, scores, n_blocks, stream
-        "bm25_scan": [_P] * 9 + [_I, _P],
+        # docs, tf, ni, lens, blk, lo, hi, then boost, avgdl and nfd as
+        # pointers to 0-d f32 on the card (or NULL) and as values (read
+        # where the pointer is NULL), scores, n_blocks, stream
+        "bm25_scan": [_P] * 10 + [_F] * 3 + [_P, _I, _P],
     },
     "knn_subblock_max": {
         # vecs, queries, bmax, bcnt, n, d, q, sub, n_valid, stream
@@ -70,7 +73,8 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "knn_rescore": [_P] * 4 + [_I, _I, _I, _I, _I, _P],
     },
     "phrase_counts": {
-        # bits, terms, docs, spans, any, seq, pp, n_spans, n_docs, stream
+        # bits, terms, doc_bounds, spans, any, seq, pp, n_spans, n_docs,
+        # stream
         "phrase_counts": [_P] * 6 + [_L, _I, _I, _P],
     },
     "knn_subblock_max_int8": {
@@ -180,6 +184,17 @@ def stream() -> int:
 
 def ptr(t: torch.Tensor) -> int:
     return t.data_ptr()
+
+
+def scalar_arg(x, device):
+    """A float kernel argument that is a Python number or a 0-d tensor:
+    (tensor to keep alive, its pointer, 0.0) for a tensor, moved to
+    ``device`` as f32 if it is not there already, and (None, None, x) for
+    a number, which travels by value with no upload."""
+    if isinstance(x, torch.Tensor):
+        t = x.to(device=device, dtype=torch.float32).reshape(())
+        return t, t.data_ptr(), 0.0
+    return None, None, float(x)
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:

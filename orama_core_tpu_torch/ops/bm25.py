@@ -176,7 +176,12 @@ def bm25_scores_blocked_aligned(post_docs, post_tf, post_ni, post_lens,
     arguments, no ``interpret``): per plan block, an aligned BLOCK of the
     posting columns, scored inside its [lo, hi) window, summed per doc.
     The per-doc sum is fused into the kernel with atomics, so sums differ
-    from the plain version in the last bits (order of addition)."""
+    from the plain version in the last bits (order of addition).
+
+    The plan is ``build_block_plan_aligned``'s: every real block (hi > 0)
+    comes before every pad block (hi == 0), and the kernel stops at the
+    first pad. The three scalars are Python numbers (kernel arguments, no
+    upload) or 0-d tensors on the card (read by the kernel)."""
     if not post_docs.is_cuda:
         return bm25_scores_blocked_aligned_plain(
             post_docs, post_tf, post_ni, post_lens, block_idx, lo_off,
@@ -191,22 +196,31 @@ def bm25_scores_blocked_aligned(post_docs, post_tf, post_ni, post_lens,
             raise ValueError(f"{name}: shape {tuple(t.shape)} != post_docs")
     if post_docs.shape[0] % BLOCK:
         raise ValueError("pad posting arrays to a BLOCK multiple")
+    for name, t in (("post_docs", post_docs), ("post_tf", post_tf),
+                    ("post_ni", post_ni), ("post_lens", post_lens)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernel's 16-byte loads need a "
+                             "16-byte aligned tensor")
     for name, t in (("block_idx", block_idx), ("lo_off", lo_off),
                     ("hi_off", hi_off)):
         _cuda.require(t, name, torch.int32, 1)
         if t.shape[0] != n_blocks:
             raise ValueError(f"{name}: expected {n_blocks} plan blocks")
-    params = torch.stack([
-        _f32(field_boost, dev), _f32(avgdl, dev), _f32(n_field_docs, dev),
-    ]).contiguous()
-    scores = torch.zeros(n_docs, dtype=torch.float32, device=dev)
+    scalars = [_cuda.scalar_arg(x, dev) for x in
+               (field_boost, avgdl, n_field_docs)]
     lib = _cuda.lib("bm25_scan")
+    # the fill must be the launch right before the kernel's: the kernel
+    # overlaps its loads with it (csrc/bm25_scan.cu)
+    scores = torch.zeros(n_docs, dtype=torch.float32, device=dev)
+    if n_docs == 0:
+        return scores
     _cuda.LAUNCHES["bm25_scan"] += 1
     _cuda.check(lib.bm25_scan(
         _cuda.ptr(post_docs), _cuda.ptr(post_tf), _cuda.ptr(post_ni),
         _cuda.ptr(post_lens), _cuda.ptr(block_idx), _cuda.ptr(lo_off),
-        _cuda.ptr(hi_off), _cuda.ptr(params), _cuda.ptr(scores),
-        int(n_blocks), _cuda.stream(),
+        _cuda.ptr(hi_off), *[p for _t, p, _v in scalars],
+        *[v for _t, _p, v in scalars], _cuda.ptr(scores), int(n_blocks),
+        _cuda.stream(),
     ), "bm25_scan")
     return scores
 
@@ -362,21 +376,8 @@ def _group_flags(first, adj_key, next_same, matched):
     return anyc, seqc
 
 
-def _phrase_group_flags(docs, poss, terms, spans):
-    """Per-position (anyc, seqc) as f32 from the raw doc-major stream."""
-    valid = docs < PAD_DOC
-    matched = _matched(terms, spans) & valid
-    prev_doc = _shift_r(docs, 1, -1)
-    prev_pos = _shift_r(poss, 1, -9)
-    first = ((docs != prev_doc) | (poss != prev_pos)) & valid
-    adj_key = (docs == prev_doc) & (poss == prev_pos + 1)
-    next_same = (_shift_l(docs, -2) == docs) & (_shift_l(poss, -9) == poss)
-    anyc, seqc = _group_flags(first, adj_key, next_same, matched)
-    return anyc.to(torch.float32), seqc.to(torch.float32)
-
-
 def _phrase_group_flags_bits(bits, terms, spans):
-    """_phrase_group_flags from the commit-static bit stream (identical)."""
+    """Per-position (anyc, seqc) as f32 from the commit-static bits."""
     matched = _matched(terms, spans) & ((bits & 8) > 0)
     anyc, seqc = _group_flags(
         (bits & 1) > 0, (bits & 2) > 0, (bits & 4) > 0, matched
@@ -385,9 +386,14 @@ def _phrase_group_flags_bits(bits, terms, spans):
 
 
 def _boost_from_counts(anyorder, seq, user_boost):
+    """anyorder + 2*seq + user_boost where a doc matched, user_boost
+    elsewhere. A Python ``user_boost`` stays a scalar (no upload)."""
     a = anyorder.to(torch.float32)
     s = seq.to(torch.float32)
-    ub = _f32(user_boost, a.device)
+    if isinstance(user_boost, torch.Tensor):
+        ub = _f32(user_boost, a.device)
+    else:
+        ub = float(np.float32(user_boost))
     return torch.where(a > 0, a + 2.0 * s + ub, ub)
 
 
@@ -397,15 +403,10 @@ def phrase_boost_docmajor(docs, poss, terms, doc_bounds, spans, user_boost,
     per-doc counts of matched (doc, pos) groups (``anyorder``) and of
     matched groups following a matched group at pos-1 (``sequences``),
     read through the per-doc CSR bounds of the stream. Counts are
-    integer cumsums (exact at any stream length)."""
-    anyc, seqc = _phrase_group_flags(docs, poss, terms, spans)
-    zero = torch.zeros(1, dtype=torch.int64, device=docs.device)
-    csa = torch.cat([zero, torch.cumsum(anyc.to(torch.int64), 0)])
-    css = torch.cat([zero, torch.cumsum(seqc.to(torch.int64), 0)])
-    at = doc_bounds.long()
-    anyorder = csa[at[1:]] - csa[at[:-1]]
-    seq = css[at[1:]] - css[at[:-1]]
-    return _boost_from_counts(anyorder[:n_docs], seq[:n_docs], user_boost)
+    integer cumsums (exact at any stream length), from K4 on the card."""
+    anyorder, seq = phrase_counts(phrase_static_bits(docs, poss), terms,
+                                  doc_bounds, spans, n_docs)
+    return _boost_from_counts(anyorder, seq, user_boost)
 
 
 # The reference's windowed reduction bins each _PH_PB-position block into a
@@ -462,61 +463,86 @@ def phrase_window_meta(doc_bounds, pp: int, pp_pad: int):
     return w_base, W, wsub
 
 
-def phrase_counts_plain(bits, terms, docs, spans, n_docs: int):
+def phrase_counts_plain(bits, terms, doc_bounds, spans, n_docs: int):
     """Plain torch version of K4's counting: (anyorder int32[n_docs],
-    seq int32[n_docs]) over the doc-sorted stream."""
+    seq int32[n_docs]) over the doc-sorted stream, in the cumsum form of
+    phrase_boost_docmajor: integer running sums of the per-position flags
+    read at the per-doc CSR bounds ``doc_bounds`` int32[n_docs + 1]."""
     anyc, seqc = _phrase_group_flags_bits(bits, terms, spans)
-    dev = docs.device
-    seg = torch.where(docs < PAD_DOC, docs.long(), torch.zeros_like(docs,
-                                                                   dtype=torch.long))
-    anyorder = torch.zeros(n_docs, dtype=torch.int32, device=dev)
-    anyorder.index_add_(0, seg, anyc.to(torch.int32))
-    seq = torch.zeros(n_docs, dtype=torch.int32, device=dev)
-    seq.index_add_(0, seg, seqc.to(torch.int32))
+    zero = torch.zeros(1, dtype=torch.int64, device=bits.device)
+    csa = torch.cat([zero, torch.cumsum(anyc.to(torch.int64), 0)])
+    css = torch.cat([zero, torch.cumsum(seqc.to(torch.int64), 0)])
+    at = doc_bounds.long()
+    anyorder = (csa[at[1:]] - csa[at[:-1]])[:n_docs].to(torch.int32)
+    seq = (css[at[1:]] - css[at[:-1]])[:n_docs].to(torch.int32)
     return anyorder, seq
 
 
-def phrase_counts(bits, terms, docs, spans, n_docs: int):
+def phrase_counts(bits, terms, doc_bounds, spans, n_docs: int):
     """K4: per-doc (anyorder, seq) int32 counts over the doc-sorted stream
-    (csrc/phrase_counts.cu); the plain version for CPU tensors."""
-    if not docs.is_cuda:
-        return phrase_counts_plain(bits, terms, docs, spans, n_docs)
+    (csrc/phrase_counts.cu); the plain version for CPU tensors. Each
+    block of the kernel owns whole docs and writes each of their counts
+    once, so the outputs are allocated without a fill."""
+    if not bits.is_cuda:
+        return phrase_counts_plain(bits, terms, doc_bounds, spans, n_docs)
     _cuda.require(bits, "bits", torch.uint8, 1)
     _cuda.require(terms, "terms", torch.int32, 1)
-    _cuda.require(docs, "docs", torch.int32, 1)
+    _cuda.require(doc_bounds, "doc_bounds", torch.int32, 1)
     spans = spans.to(torch.int32).contiguous()
     _cuda.require(spans, "spans", torch.int32, 2)
-    pp = docs.shape[0]
-    if bits.shape[0] != pp or terms.shape[0] != pp:
-        raise ValueError("bits/terms/docs must have one entry per position")
+    pp = bits.shape[0]
+    if terms.shape[0] != pp:
+        raise ValueError("bits/terms must have one entry per position")
+    if pp >= 2**31:
+        raise ValueError("the phrase stream must hold fewer than 2^31 "
+                         "positions")
+    if doc_bounds.shape[0] != n_docs + 1:
+        raise ValueError(f"doc_bounds: expected {n_docs + 1} entries")
     if spans.shape[0] > 32 or spans.shape[1] != 2:
         raise ValueError("spans must be [<=32, 2]")
-    anyorder = torch.zeros(n_docs, dtype=torch.int32, device=docs.device)
-    seq = torch.zeros(n_docs, dtype=torch.int32, device=docs.device)
+    for name, t in (("bits", bits), ("terms", terms)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernel's 16-byte copies need a "
+                             "16-byte aligned tensor")
+    anyorder = torch.empty(n_docs, dtype=torch.int32, device=bits.device)
+    seq = torch.empty(n_docs, dtype=torch.int32, device=bits.device)
     lib = _cuda.lib("phrase_counts")
     _cuda.LAUNCHES["phrase_counts"] += 1
     _cuda.check(lib.phrase_counts(
-        _cuda.ptr(bits), _cuda.ptr(terms), _cuda.ptr(docs), _cuda.ptr(spans),
-        _cuda.ptr(anyorder), _cuda.ptr(seq), int(pp), int(spans.shape[0]),
-        int(n_docs), _cuda.stream(),
+        _cuda.ptr(bits), _cuda.ptr(terms), _cuda.ptr(doc_bounds),
+        _cuda.ptr(spans), _cuda.ptr(anyorder), _cuda.ptr(seq), int(pp),
+        int(spans.shape[0]), int(n_docs), _cuda.stream(),
     ), "phrase_counts")
     return anyorder, seq
+
+
+def stream_doc_bounds(docs: torch.Tensor, n_docs: int) -> torch.Tensor:
+    """Per-doc CSR bounds int32[n_docs + 1] of a (doc, pos)-sorted stream
+    whose padding holds PAD_DOC: bounds[d] = positions of docs below d."""
+    at = torch.arange(n_docs + 1, dtype=docs.dtype, device=docs.device)
+    return torch.searchsorted(docs, at).to(torch.int32)
 
 
 def phrase_boost_docmajor_windowed(docs, poss, terms, w_base, spans,
                                    user_boost, n_docs: int, W: int,
                                    wsub: int,
                                    bits: Optional[torch.Tensor] = None,
-                                   combine: str = "segsum") -> torch.Tensor:
+                                   combine: str = "segsum",
+                                   bounds: Optional[torch.Tensor] = None,
+                                   ) -> torch.Tensor:
     """K4 path: the reference's windowed phrase boost contract (same
     arguments, no ``interpret``) and a result bit-identical to
     phrase_boost_docmajor. The per-doc counts come from K4
     (``phrase_counts``), which needs no windows: ``w_base``, ``W``,
     ``wsub`` and ``combine`` are accepted for the signature and unused.
-    Without ``bits`` they are derived from (docs, poss) first."""
+    Without ``bits`` they are derived from (docs, poss) first; without
+    ``bounds`` (the stream's per-doc CSR, int32[n_docs + 1]) they are
+    derived from ``docs`` with one searchsorted."""
     if bits is None:
         bits = phrase_static_bits(docs, poss)
-    anyorder, seq = phrase_counts(bits, terms, docs, spans, n_docs)
+    if bounds is None:
+        bounds = stream_doc_bounds(docs, n_docs)
+    anyorder, seq = phrase_counts(bits, terms, bounds, spans, n_docs)
     return _boost_from_counts(anyorder, seq, user_boost)
 
 

@@ -30,8 +30,8 @@ from .fusion import dense_topk, minmax_fuse, rrf_candidate_count, rrf_fuse_topk
 def _field_fulltext_score(fargs, fstat, *, n_docs: int, bm25_pallas: bool):
     """One string field's dense BM25 scores: the blocked posting scan
     (aligned plan -> K1, or the unaligned plain scan), optional dense
-    Zipf-head rows, optional phrase multiplier (windowed contract -> K4,
-    or the cumsum version). ``fstat`` = (n_blocks, phrase, dense,
+    Zipf-head rows, optional phrase multiplier (K4, under either of the
+    reference's phrase contracts). ``fstat`` = (n_blocks, phrase, dense,
     ph_windowed, ph_W, ph_wsub); ``fargs`` as in the reference."""
     (
         post_docs, post_tf, post_ni, post_lens, b_starts, b_valid,
@@ -40,7 +40,7 @@ def _field_fulltext_score(fargs, fstat, *, n_docs: int, bm25_pallas: bool):
         ph_docs, ph_poss, ph_terms, ph_bounds, ph_wbase, ph_bits,
         ph_spans, ph_boost,
     ) = fargs
-    n_blocks, phrase, dense, ph_windowed, ph_W, ph_wsub = fstat
+    n_blocks, phrase, dense, _ph_windowed, ph_W, ph_wsub = fstat
     if bm25_pallas:
         ft = bm25_ops.bm25_scores_blocked_aligned(
             post_docs, post_tf, post_ni, post_lens, ba_idx, ba_lo, ba_hi,
@@ -57,16 +57,14 @@ def _field_fulltext_score(fargs, fstat, *, n_docs: int, bm25_pallas: bool):
         ft = ft + bm25_ops.dense_rows_contrib(dense_rows, d_sel, d_w,
                                               bm25_boost)
     if phrase:
-        if ph_windowed:
-            ft = ft * bm25_ops.phrase_boost_docmajor_windowed(
-                ph_docs, ph_poss, ph_terms, ph_wbase, ph_spans, ph_boost,
-                n_docs=n_docs, W=ph_W, wsub=ph_wsub, bits=ph_bits,
-            )
-        else:
-            ft = ft * bm25_ops.phrase_boost_docmajor(
-                ph_docs, ph_poss, ph_terms, ph_bounds, ph_spans, ph_boost,
-                n_docs=n_docs,
-            )
+        # both of the reference's phrase contracts reach K4: the windowed
+        # one carries the bits, the cumsum one the per-doc bounds, and
+        # the wrapper derives what it is not given from docs and positions
+        ft = ft * bm25_ops.phrase_boost_docmajor_windowed(
+            ph_docs, ph_poss, ph_terms, ph_wbase, ph_spans, ph_boost,
+            n_docs=n_docs, W=ph_W, wsub=ph_wsub, bits=ph_bits,
+            bounds=ph_bounds,
+        )
     return ft
 
 

@@ -156,6 +156,27 @@ def _phrase_corpus(seed, lo_len, hi_len, n_docs):
         for p in range(5000):  # one giant doc spanning several blocks
             entries.append((n_docs, p, int(rng.integers(0, 25))))
         n_docs += 1
+    return _pack_phrase(entries, n_docs, rng)
+
+
+def _phrase_corpus_gaps(seed=5, n_docs=700):
+    """Docs with no positions: doc 0, every 7th doc from 3, a run of 40 in
+    the middle and the last 60 up to ``n_docs``."""
+    rng = np.random.default_rng(seed)
+    empty = ({0} | set(range(3, n_docs, 7)) | set(range(300, 340))
+             | set(range(n_docs - 60, n_docs)))
+    entries = []
+    for d in range(n_docs):
+        if d in empty:
+            continue
+        for p in range(int(rng.integers(3, 13))):
+            entries.append((d, p, int(rng.integers(0, 12))))
+            if rng.random() < 0.4:
+                entries.append((d, p, int(rng.integers(12, 25))))
+    return _pack_phrase(entries, n_docs, rng)
+
+
+def _pack_phrase(entries, n_docs, rng):
     rng.shuffle(entries)
     e = np.asarray(entries, np.int64)
     pp = len(e)
@@ -226,6 +247,153 @@ def test_k4_plain_matches_reference_exactly(seed, lo_len, hi_len, n_docs):
     np.testing.assert_array_equal(got_nobits, want_win)
     np.testing.assert_array_equal(got_dm, want_dm)
     assert (got_win > 2.0).sum() > 0
+
+
+@pytest.mark.parametrize("case", PHRASE_CASES + ["gaps"],
+                         ids=["c1", "c2", "giant_doc", "gaps"])
+def test_k4_bounds_counts_match_reference_exactly(case):
+    """K4's counting contract: the per-doc CSR bounds of the stream in,
+    (anyorder, seq) int32 out. The plain version against the reference's
+    cumsum form (phrase_boost_docmajor), its windowed form in interpret
+    mode where the corpus admits windows, and the reference's own flags
+    summed between the bounds; empty and overlapping spans among the
+    query's, and (in ``gaps``) docs with no positions at doc 0, inside the
+    stream and up to n_docs. Counts are exact."""
+    if case == "gaps":
+        n_docs, d_col, p_col, t_col, bounds, pp, pp_pad = _phrase_corpus_gaps()
+    else:
+        n_docs, d_col, p_col, t_col, bounds, pp, pp_pad = _phrase_corpus(
+            *case)
+    rd, rp, rt = jax.lax.sort(
+        (jnp.asarray(d_col), jnp.asarray(p_col), jnp.asarray(t_col)),
+        num_keys=2,
+    )
+    spans = np.asarray([[2, 5], [4, 8], [0, 0], [13, 16]], np.int32)
+    b32 = bounds.astype(np.int32)
+    bits_r = ref.phrase_static_bits(rd, rp)
+    want = np.asarray(ref.phrase_boost_docmajor(
+        rd, rp, rt, jnp.asarray(b32), jnp.asarray(spans), jnp.float32(2.0),
+        n_docs=n_docs,
+    ))
+    pd, pp_, pt = T(np.asarray(rd)), T(np.asarray(rp)), T(np.asarray(rt))
+    bits = port.phrase_static_bits(pd, pp_)
+    np.testing.assert_array_equal(
+        port.stream_doc_bounds(pd, n_docs).numpy(), b32)
+    a, s = port.phrase_counts_plain(bits, pt, T(b32), T(spans), n_docs)
+    assert a.dtype == torch.int32 and a.shape == (n_docs,)
+    assert s.dtype == torch.int32 and s.shape == (n_docs,)
+    anyc, seqc = ref._phrase_group_flags_bits(bits_r, rt, jnp.asarray(spans))
+    for got, flags in ((a, anyc), (s, seqc)):
+        cs = np.concatenate([[0], np.cumsum(np.asarray(flags, np.int64))])
+        np.testing.assert_array_equal(got.numpy(), cs[bounds[1:]]
+                                      - cs[bounds[:-1]])
+    np.testing.assert_array_equal(port._boost_from_counts(a, s, 2.0).numpy(),
+                                  want)
+    # the windowed entry point with the bounds given, and derived
+    for given in (T(b32), None):
+        got = port.phrase_boost_docmajor_windowed(
+            pd, pp_, pt, None, T(spans), 2.0, n_docs=n_docs, W=0, wsub=0,
+            bits=bits, bounds=given,
+        ).numpy()
+        np.testing.assert_array_equal(got, want)
+    meta = ref.phrase_window_meta(bounds, pp, pp_pad)
+    if meta is not None:
+        w_base, W, wsub = meta
+        want_win = np.asarray(ref.phrase_boost_docmajor_windowed(
+            rd, rp, rt, jnp.asarray(w_base), jnp.asarray(spans),
+            jnp.float32(2.0), n_docs=n_docs, W=W, wsub=wsub, interpret=True,
+            bits=bits_r,
+        ))
+        np.testing.assert_array_equal(want_win, want)
+    assert int(a.sum()) > 0 and int(s.sum()) > 0
+    if case == "gaps":
+        empty = np.diff(bounds) == 0
+        assert empty[0] and empty[-60:].all() and empty[300:340].all()
+        assert not a.numpy()[empty].any() and not s.numpy()[empty].any()
+
+
+def test_phrase_stream_cache_bounds_match_bincount():
+    """The device cache's K4 input: the sorted stream's term ids and bits,
+    and per-doc bounds built on the device from the sorted doc column,
+    equal to the reference's host form np.cumsum(np.bincount(...)) at the
+    capacity the engine asks for (equal to, and above, the docs the field
+    holds); the doc column itself is not kept."""
+    from orama_core_tpu_torch.config import GpuConfig
+    from orama_core_tpu_torch.engine.collection_read import _DeviceCache
+    from orama_core_tpu_torch.index import CommittedStringIndex, TermDict
+
+    rng = np.random.default_rng(11)
+    n_docs, n_terms = 90, 15
+    never = set(range(0, 90, 9)) | set(range(40, 50)) | set(range(80, 90))
+    pool = np.asarray([d for d in range(n_docs) if d not in never])
+    term_starts, post_docs, pos_starts, positions = [0], [], [0], []
+    for _t in range(n_terms):
+        ds = np.sort(rng.choice(pool, int(rng.integers(1, 30)), replace=False))
+        for d in ds:
+            post_docs.append(d)
+            ps = np.sort(rng.choice(20, int(rng.integers(1, 4)), replace=False))
+            positions += ps.tolist()
+            pos_starts.append(len(positions))
+        term_starts.append(len(post_docs))
+    s = CommittedStringIndex(
+        term_dict=TermDict([f"t{i:03d}" for i in range(n_terms)]),
+        term_starts=np.asarray(term_starts, np.int64),
+        post_docs=np.asarray(post_docs, np.int32),
+        post_tf=np.ones(len(post_docs), np.float32),
+        pos_starts=np.asarray(pos_starts, np.int64),
+        positions=np.asarray(positions, np.int32),
+        doc_lens_dense=np.ones(n_docs, np.float32),
+        n_docs_with_field=n_docs, total_len=len(positions),
+    )
+    cache = _DeviceCache(GpuConfig(device="cpu"))
+    pos_doc = np.repeat(s.post_docs, np.diff(s.pos_starts))
+    held = int(pos_doc.max()) + 1
+    assert held < n_docs  # the last docs hold no positions
+    for cap in (held, n_docs, 128):
+        terms, bits, bounds = cache.phrase_stream_arrays(s, cap)
+        want = np.zeros(cap + 1, np.int64)
+        np.cumsum(np.bincount(pos_doc, minlength=cap)[:cap], out=want[1:])
+        assert bounds.dtype == torch.int32
+        np.testing.assert_array_equal(bounds.numpy(), want)
+    # terms and bits are those of the (doc, pos)-sorted stream
+    pp = len(positions)
+    pp_pad = terms.shape[0]
+    d_col = np.full(pp_pad, port.PAD_DOC, np.int32)
+    p_col = np.zeros(pp_pad, np.int32)
+    t_col = np.zeros(pp_pad, np.int32)
+    d_col[:pp], p_col[:pp] = pos_doc, s.positions
+    t_col[:pp] = np.repeat(np.repeat(np.arange(n_terms), np.diff(term_starts)),
+                           np.diff(s.pos_starts))
+    sd, sp, st = port.sort_phrase_stream(T(d_col), T(p_col), T(t_col))
+    np.testing.assert_array_equal(terms.numpy(), st.numpy())
+    np.testing.assert_array_equal(bits.numpy(),
+                                  port.phrase_static_bits(sd, sp).numpy())
+    kept = cache._store[(id(s), "phrase")]
+    assert len(kept) == 3 and not any(
+        t.dtype == torch.int32 and t.shape[0] == pp_pad and torch.equal(t, sd)
+        for t in kept)
+    # one bounds variant per capacity is kept
+    assert [k for k in cache._store if isinstance(k[1], tuple)
+            and k[1][0] == "phrase_bounds"] == [(id(s), ("phrase_bounds", 128))]
+
+
+def test_scalars_stay_python_numbers():
+    """The K1 and K4 wrappers take a Python number as a number (a kernel
+    argument, or a scalar operand of torch.where) and a 0-d tensor as a
+    tensor, with the same result."""
+    from orama_core_tpu_torch.ops import _cuda
+
+    assert _cuda.scalar_arg(1.25, "cpu") == (None, None, 1.25)
+    t, p, v = _cuda.scalar_arg(torch.tensor(2.5, dtype=torch.float64), "cpu")
+    assert t.dtype == torch.float32 and t.dim() == 0 and p == t.data_ptr()
+    assert v == 0.0 and float(t) == 2.5
+    a = torch.tensor([0, 3, 1, 0], dtype=torch.int32)
+    s = torch.tensor([0, 1, 0, 0], dtype=torch.int32)
+    for ub in (1.3, 0.1, 7.0):
+        got = port._boost_from_counts(a, s, ub)
+        want = port._boost_from_counts(a, s, torch.tensor(ub))
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
 def test_k4_degenerate_corpus_matches_docmajor():

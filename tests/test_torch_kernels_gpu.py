@@ -13,7 +13,12 @@ that are not a multiple of the 64-column box (136), n_valid that is not a
 multiple of 32 or 64, a corpus whose last tile holds 32 rows, sub-blocks
 of 96 rows (tiles of 64 straddle them), and multi-vector docs of up to 64
 rows that straddle the boundaries of the blocks' row ranges (at these
-sizes every block of the persistent grid walks a range of 2-3 tiles)."""
+sizes every block of the persistent grid walks a range of 2-3 tiles).
+The K4 cases probe its doc ownership (empty docs at the start, inside
+and at the end of the stream, one doc longer than many blocks' shares,
+fewer positions than blocks, no positions at all) with 4, 16 or 32
+spans; the K1 cases its plan walk (edges inside plan blocks, a single
+posting, one block, repeated docs, a padded bucket, pads only)."""
 
 import numpy as np
 import pytest
@@ -151,6 +156,170 @@ def test_k6_stream_edges_on_card(d, m_max, q):
         bad = (bc != pc) & ~_near_zero(v, qs, n_valid, sub, m_max)
         assert int(bad.sum()) == 0, (n, sub, n_valid)
         assert int(bc.sum()) > 0 and float(bm.max()) > 0
+
+
+def _phrase_stream(rng, lens, vocab=5000, pad=3000):
+    """A (doc, pos)-sorted phrase stream on the card, as the device cache
+    holds it: doc d has lens[d] entries whose positions step by 0 (the
+    second member of a (doc, pos) group; groups have at most two), 1 or 2,
+    term ids below ``vocab``, then ``pad`` padding entries (PAD_DOC).
+    Returns (bits, terms, bounds int32[n_docs + 1])."""
+    from orama_core_tpu_torch.ops import bm25
+
+    lens = np.asarray(lens, np.int64)
+    P = int(lens.sum())
+    bounds = np.zeros(len(lens) + 1, np.int64)
+    np.cumsum(lens, out=bounds[1:])
+    docs = np.repeat(np.arange(len(lens), dtype=np.int32), lens)
+    steps = rng.choice([0, 1, 1, 2], P)
+    zero = steps == 0
+    steps[1:][zero[1:] & zero[:-1]] = 1          # no group of three
+    steps[bounds[:-1][lens > 0]] = 0             # each doc starts at 0
+    cs = np.cumsum(steps)
+    pos = (cs - np.repeat(cs[bounds[:-1][lens > 0]], lens[lens > 0])).astype(
+        np.int32)
+    d = np.concatenate([docs, np.full(pad, bm25.PAD_DOC, np.int32)])
+    p = np.concatenate([pos, np.zeros(pad, np.int32)])
+    t = np.concatenate([rng.integers(0, vocab, P).astype(np.int32),
+                        np.zeros(pad, np.int32)])
+    dt, pt = torch.tensor(d, device="cuda"), torch.tensor(p, device="cuda")
+    return (bm25.phrase_static_bits(dt, pt), torch.tensor(t, device="cuda"),
+            torch.tensor(bounds.astype(np.int32), device="cuda"))
+
+
+def _phrase_lens(case, rng):
+    if case == "gaps":      # empty doc 0, empty docs inside, 3,000 at the end
+        lens = rng.integers(1, 40, 120_000)
+        lens[0] = 0
+        lens[rng.choice(120_000, 5000, replace=False)] = 0
+        lens[-3000:] = 0
+    elif case == "long_doc":  # one doc longer than many blocks' shares
+        lens = np.ones(200_000, np.int64)
+        lens[77_777] = 300_000
+    elif case == "long_docs":  # docs of 500-9,000: groups straddle tiles
+        lens = rng.integers(500, 9000, 600)
+    elif case == "tiny":    # fewer positions than blocks
+        lens = np.asarray([3, 0, 5, 1, 2])
+    else:                   # "empty": no positions at all
+        lens = np.zeros(1000, np.int64)
+    return lens
+
+
+def _phrase_spans(rng, n, vocab=5000):
+    """n spans: a third empty (lo >= hi), the second overlapping the first,
+    one touching the first's end."""
+    lo = rng.integers(0, vocab, n)
+    hi = lo + rng.integers(1, 80, n)
+    empty = rng.random(n) < 0.33
+    hi[empty] = lo[empty] - rng.integers(0, 3, int(empty.sum()))
+    lo[0], hi[0] = 100, 400
+    lo[1], hi[1] = 350, 500
+    lo[2], hi[2] = 500, 520
+    lo[3], hi[3] = 9, 9
+    return torch.tensor(np.stack([lo, hi], 1).astype(np.int32), device="cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_spans", [4, 16, 32])
+@pytest.mark.parametrize("case", ["gaps", "long_doc", "long_docs", "tiny",
+                                  "empty"])
+def test_k4_owns_whole_docs_on_card(case, n_spans):
+    """K4 against its plain version (the cumsum form), exactly: docs with
+    no positions (doc 0, inside the stream, a run up to n_docs), one doc
+    longer than a block's share of the stream, (doc, pos) groups of two
+    and adjacent positions across the kernel's 4096-position tiles, a
+    padded stream tail, and 4, 16 or 32 spans with empty and overlapping
+    ones among them."""
+    _need_card()
+    from orama_core_tpu_torch.ops import bm25
+
+    rng = np.random.default_rng(31)
+    bits, terms, bounds = _phrase_stream(rng, _phrase_lens(case, rng))
+    n_docs = bounds.shape[0] - 1
+    spans = _phrase_spans(rng, n_spans)
+    a, s = bm25.phrase_counts(bits, terms, bounds, spans, n_docs)
+    pa, ps = bm25.phrase_counts_plain(bits, terms, bounds, spans, n_docs)
+    torch.cuda.synchronize()
+    assert a.dtype == torch.int32 and a.shape == (n_docs,)
+    assert torch.equal(a, pa) and torch.equal(s, ps), (
+        int((a != pa).sum()), int((s != ps).sum()))
+    if case not in ("empty", "tiny"):
+        assert int(pa.sum()) > 0 and int(ps.sum()) > 0
+
+
+@pytest.mark.gpu
+def test_k4_raises_on_what_it_does_not_take():
+    _need_card()
+    from orama_core_tpu_torch.ops import bm25
+
+    rng = np.random.default_rng(2)
+    bits, terms, bounds = _phrase_stream(rng, rng.integers(1, 9, 100))
+    spans = _phrase_spans(rng, 4)
+    with pytest.raises(ValueError):
+        bm25.phrase_counts(bits, terms, bounds, _phrase_spans(rng, 33), 100)
+    with pytest.raises(ValueError):
+        bm25.phrase_counts(bits, terms, bounds[:-1], spans, 100)
+    with pytest.raises(TypeError):
+        bm25.phrase_counts(bits, terms, bounds.long(), spans, 100)
+
+
+def _k1_corpus(rng, n_docs=50_000, n_post=1_200_128):
+    """Posting columns on the card (a BLOCK multiple); postings
+    [600000, 605000) repeat the docs of [0, 5000)."""
+    docs = rng.integers(0, n_docs, n_post).astype(np.int32)
+    docs[600_000:605_000] = docs[:5000]
+    cols = (docs, rng.integers(1, 5, n_post).astype(np.float32),
+            rng.uniform(1, 3000, n_post).astype(np.float32),
+            rng.uniform(5, 300, n_post).astype(np.float32))
+    return [torch.tensor(c, device="cuda") for c in cols]
+
+
+K1_PLANS = {  # name: (p_lo, p_len, n_blocks or None for the bucket)
+    "inside": ([1500, 3000], [300, 2000], None),
+    "single": ([7777], [1], None),
+    "one_block": ([2048], [1024], 1),
+    "same_docs": ([0, 600_000], [5000, 5000], None),
+    "padded": ([10_000], [1100 * 1024 - 500], None),  # 1,101 in 2,048
+    "pads_only": ([], [], 16),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plan", list(K1_PLANS))
+def test_k1_walks_plan_chunks_on_card(plan):
+    """K1 against its plain version within rtol 1e-5, atol 1e-6 (f32 adds
+    in another order): spans that start and end inside plan blocks, a
+    single posting, a one-block plan, spans over the same docs, a plan
+    padded to its PLAN_BUCKETS bucket as the engine builds it, and a plan
+    of pad blocks only (zeros). The scalars go once as Python numbers and
+    once as 0-d tensors on the card."""
+    _need_card()
+    from orama_core_tpu_torch.ops import bm25
+    from orama_core_tpu_torch.utils import bucket_pad
+
+    rng = np.random.default_rng(41)
+    cols = _k1_corpus(rng)
+    p_lo, p_len, nb = K1_PLANS[plan]
+    if nb is None:
+        nb = bucket_pad(max(bm25.aligned_blocks_needed(p_len), 1),
+                        bm25.PLAN_BUCKETS)
+    planned = [torch.tensor(a, device="cuda")
+               for a in bm25.build_block_plan_aligned(p_lo, p_len, nb)]
+    if plan == "padded":
+        assert nb == 2048 and int((planned[2] > 0).sum()) == 1101
+    for scalars in ((1.3, 42.0, 50_000.0),
+                    tuple(torch.tensor(x, device="cuda")
+                          for x in (1.3, 42.0, 50_000.0))):
+        got = bm25.bm25_scores_blocked_aligned(
+            *cols, *planned, *scalars, n_docs=50_000, n_blocks=nb)
+        want = bm25.bm25_scores_blocked_aligned_plain(
+            *cols, *planned, *scalars, n_docs=50_000, n_blocks=nb)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+        if plan == "pads_only":
+            assert not got.any()
+        else:
+            assert int((got > 0).sum()) >= min(sum(p_len), 100)
 
 
 @pytest.mark.gpu
