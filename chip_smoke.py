@@ -43,16 +43,37 @@ all started together), then runs, failing at the first phase that fails:
    mode is held against the same data directory loaded by
    ``build_orama(device="cpu")``.
 
-After phase 3, K2 and K6 are each checked and timed at Q = 1 (the
-engine's shape), 8 and 64 (batched serving's) on the exact and chunked
-corpora, with their bounds (one ``{"q_sweep": ...}`` JSON line).
+Phase 3 also checks and times K3 at 128, 1,024 and 4,096 selected slots
+(Q = 8, 64, 256 at k = 16; one ``{"k3_shapes": ...}`` line) and K1 over
+the combined plan of a batch of 64 Zipf-drawn terms (row ids; in the K1
+probe line, with the fill of its 64 x capacity scores). After phase 3,
+K2 and K6 are each checked and timed at Q = 1 (the engine's shape), 8
+and 64, and K2 at 256 (batched serving's), on the exact and chunked
+corpora, with their bounds (one ``{"q_sweep": ...}`` JSON line). After
+phase 4, batched serving on the exact collection: ``search_batch`` at
+B = 8, 64 and 256 for vector, fulltext and hybrid RRF, each row held
+against the single-query ``search`` and one batch of 8 per mode against
+the CPU (one ``{"batch": ...}`` line: queries/s over a window of
+back-to-back batches, batch p50 and max); the same collection with a
+``title`` field beside ``body`` serves batches of 64 fulltext and hybrid
+queries (the per-row span scorer's route) against the same queries one
+by one (one ``{"two_fields": ...}`` line); and the batched RRF's two
+rank methods are timed at B = 1 to 256 (one ``{"rrf_ranks": ...}``
+line). After phase 5, ``build_orama`` with ``query_batching=True``
+serves 24 concurrent threads through the micro-batcher with the
+unbatched hits (one ``{"batcher": ...}`` line).
 
-With ``--profile``, each engine mode is also traced with torch.profiler
-(device busy share, top ops by device time and by host self time). The
+With ``--profile``, each engine mode and each batch shape is also traced
+with torch.profiler (device busy share, top ops by device time and, per
+engine mode, by host self time). The
 last three lines are the card's name and power limit, the kernels' JSON
 record and ``{"ok": true, "device": {...}}``. Without a CUDA device the
 script exits non-zero and prints no result; nothing runs on the CPU in
 its place.
+
+``--k3-compare DIR`` also builds DIR's ``orama_core_tpu_torch/csrc/
+knn_rescore.cu`` (an export of an earlier commit) and times it on the
+same K3 selections (``compare_ms``).
 
 ``--sweep-only`` builds the kernels and runs only the Q sweep, on the same
 shapes made on the card from a seed (no collections, no result line). The
@@ -124,31 +145,12 @@ def synth_arrays(n_docs=N_DOCS, n_terms=N_TERMS, avg_postings=AVG_POSTINGS,
                  dim=DIM, seed=0):
     """Committed arrays of the 1M serving setup, from a seed."""
     from orama_core_tpu_torch.index import (
-        CommittedNumberIndex, CommittedStringIndex, CommittedVectorIndex,
-        TermDict,
+        CommittedNumberIndex, CommittedVectorIndex,
     )
 
     rng = np.random.default_rng(seed)
-    ranks = np.arange(1, n_terms + 1, dtype=np.float64)
-    weights = 1.0 / ranks ** 0.9
-    df = np.maximum((weights / weights.sum() * n_docs * avg_postings)
-                    .astype(np.int64), 1)
-    df = np.minimum(df, n_docs)
-    term_starts = np.zeros(n_terms + 1, np.int64)
-    np.cumsum(df, out=term_starts[1:])
-    p = int(term_starts[-1])
-    td = TermDict.__new__(TermDict)
-    td.terms = [f"term{t:06d}" for t in range(n_terms)]
-    doc_lens = rng.integers(20, 200, n_docs).astype(np.float32)
-    string_idx = CommittedStringIndex(
-        term_dict=td, term_starts=term_starts,
-        post_docs=rng.integers(0, n_docs, p).astype(np.int32),
-        post_tf=rng.integers(1, 5, p).astype(np.float32),
-        pos_starts=np.arange(p + 1, dtype=np.int64),   # one position each
-        positions=rng.integers(0, 100, p).astype(np.int32),
-        doc_lens_dense=doc_lens, n_docs_with_field=n_docs,
-        total_len=int(doc_lens.sum()),
-    )
+    string_idx = synth_string_index(rng, n_docs, n_terms, avg_postings,
+                                    (20, 200))
     vecs = rng.standard_normal((n_docs, dim), dtype=np.float32)
     vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
     prices = rng.uniform(0, 100, n_docs).astype(np.float32)
@@ -172,6 +174,69 @@ def synth_arrays(n_docs=N_DOCS, n_terms=N_TERMS, avg_postings=AVG_POSTINGS,
         "alive": np.ones(n_docs, np.float32),
         "doc_count": n_docs, "max_doc_id": n_docs - 1,
     }
+
+
+def synth_string_index(rng, n_docs, n_terms, avg_postings, doc_len_range):
+    """A committed string index of Zipf terms (df ~ rank^-0.9), one
+    position per posting."""
+    from orama_core_tpu_torch.index import CommittedStringIndex, TermDict
+
+    ranks = np.arange(1, n_terms + 1, dtype=np.float64)
+    weights = 1.0 / ranks ** 0.9
+    df = np.maximum((weights / weights.sum() * n_docs * avg_postings)
+                    .astype(np.int64), 1)
+    df = np.minimum(df, n_docs)
+    term_starts = np.zeros(n_terms + 1, np.int64)
+    np.cumsum(df, out=term_starts[1:])
+    p = int(term_starts[-1])
+    td = TermDict.__new__(TermDict)
+    td.terms = [f"term{t:06d}" for t in range(n_terms)]
+    doc_lens = rng.integers(*doc_len_range, n_docs).astype(np.float32)
+    return CommittedStringIndex(
+        term_dict=td, term_starts=term_starts,
+        post_docs=rng.integers(0, n_docs, p).astype(np.int32),
+        post_tf=rng.integers(1, 5, p).astype(np.float32),
+        pos_starts=np.arange(p + 1, dtype=np.int64),
+        positions=rng.integers(0, 100, p).astype(np.int32),
+        doc_lens_dense=doc_lens, n_docs_with_field=n_docs,
+        total_len=int(doc_lens.sum()),
+    )
+
+
+def unique_postings(s):
+    """String index arrays ``s`` with one posting per (term, doc),
+    doc-ascending within each term, as an index built from documents
+    holds. (synth_string_index draws docs with repeats; the Zipf-head
+    dense rows and the span scorer score a repeated posting differently,
+    and only the span scorer's route needs the difference gone.)"""
+    ts = s["term_starts"]
+    n_docs = len(s["doc_lens_dense"])
+    tid = np.repeat(np.arange(len(ts) - 1, dtype=np.int64), np.diff(ts))
+    keep = np.unique(tid * n_docs + s["post_docs"], return_index=True)[1]
+    counts = np.bincount(tid[keep], minlength=len(ts) - 1)
+    return dict(s, post_docs=s["post_docs"][keep], post_tf=s["post_tf"][keep],
+                positions=s["positions"][keep],
+                pos_starts=np.arange(len(keep) + 1, dtype=np.int64),
+                term_starts=np.concatenate([[0], np.cumsum(counts)])
+                .astype(ts.dtype))
+
+
+def with_title(arrays, avg_postings=3, seed=5):
+    """``arrays`` with a second string field, ``title`` (the same Zipf
+    vocabulary, ~3 postings per doc, 2-12 tokens), both fields with
+    unique postings: the common title + body shape. Batched fulltext and
+    hybrid queries on two string fields take the per-row span scorer
+    (``search_fulltext_batch``), not the batched fused program, as the
+    reference routes them."""
+    n_docs = arrays["doc_count"]
+    title = synth_string_index(np.random.default_rng(seed), n_docs, N_TERMS,
+                               avg_postings, (2, 12))
+    return dict(arrays, collection_id="smoke1m_title",
+                fields=arrays["fields"] + [
+                    {"field_id": 3, "name": "title", "type": "string"}],
+                arrays=dict(arrays["arrays"], **{
+                    "string-0": unique_postings(arrays["arrays"]["string-0"]),
+                    "string-3": unique_postings(title.to_arrays())}))
 
 
 def synth_multivec_arrays(n_docs=250_000, max_chunks=7, dim=DIM, seed=3):
@@ -280,9 +345,11 @@ def kernel_record(name, max_abs_err, ms, plain_ms, bytes_moved, ops,
     }
 
 
-def phase_kernels(reader, rng, probe_lib):
+def phase_kernels(reader, rng, probe_lib, compare_lib=None):
     """Each kernel against its plain version on the collection's tensors;
-    ``probe_lib``: the built K1 probes (build_kernels_and_probes)."""
+    ``probe_lib``: the built K1 probes (build_kernels_and_probes);
+    ``compare_lib``: another build of K3 to time beside this one, or
+    None."""
     import torch
 
     from orama_core_tpu_torch.ops import bm25, knn
@@ -347,7 +414,8 @@ def phase_kernels(reader, rng, probe_lib):
         f"padded to buckets {[k['n_blocks'] for _a, k in padded]} (from "
         f"{n_blocks} blocks): {pad_ms:.4f} ms")
     probe = k1_probes(probe_lib, calls, spans_k1, d_docs, cap)
-    probe.update(k1_ms=ms, k1_padded_ms=pad_ms, postings=n_posts)
+    probe.update(k1_ms=ms, k1_padded_ms=pad_ms, postings=n_posts,
+                 batch64=k1_batch(reader, rng, scal))
     print(json.dumps({"k1_probe": probe}), flush=True)
 
     # K2: the padded corpus, n_valid real rows, Q = 8
@@ -355,7 +423,7 @@ def phase_kernels(reader, rng, probe_lib):
     vecs, _docs, _valid = reader._device.vector_arrays(vf.committed)
     n_valid = vf.committed.n_vectors
     qd = unit_queries(rng, 8, vecs.shape[1])
-    err, pm = check_k2(vecs, qd, n_valid)
+    err, _ = check_k2(vecs, qd, n_valid)
     ms = time_ms(lambda: knn.subblock_max(vecs, qd, 32, n_valid), 20)
     pms = time_ms(lambda: knn.subblock_max_plain(vecs, qd, 32, n_valid), 3)
     d = vecs.shape[1]
@@ -376,32 +444,14 @@ def phase_kernels(reader, rng, probe_lib):
             f"err {werr:.3g}, {wms:.4f} ms")
         del vw
 
-    # K3: the sub-blocks phase 2 selects for these queries (k = 16); timed
-    # in turn with 23 more query batches' selections (~75 MB of rows, past
-    # the L2, as after a K2 pass that streamed the corpus)
-    k = 16
-    ids = knn._tiered_subblock_topk(pm, k).reshape(-1)
-    r1 = knn.rescore_subblocks(vecs, qd, ids, k, 32)
-    r2 = knn.rescore_subblocks_plain(vecs, qd, ids, k, 32)
-    torch.cuda.synchronize()
-    err = (r1 - r2).abs().max().item()
-    require(err <= 1e-4, f"K3 disagrees: {err}")
-    sel = [(qd, ids)]
-    for _ in range(23):
-        qx = torch.randn(8, d, generator=gen, device="cuda")
-        qx = (qx / qx.norm(dim=1, keepdim=True)).to(torch.bfloat16)
-        mx, _ = knn.subblock_max(vecs, qx, 32, n_valid)
-        sel.append((qx, knn._tiered_subblock_topk(mx, k).reshape(-1)))
-    ms = time_ms([lambda q_=q_, i_=i_: knn.rescore_subblocks(
-        vecs, q_, i_, k, 32) for q_, i_ in sel], 96)
-    pms = time_ms([lambda q_=q_, i_=i_: knn.rescore_subblocks_plain(
-        vecs, q_, i_, k, 32) for q_, i_ in sel], 48)
-    nsel = ids.numel()
+    # K3: the sub-blocks phase 2 selects (k = 16) at Q = 8 (the record:
+    # 128 slots), 64 and 256 (batched serving: 1,024 and 4,096 slots)
+    shapes = k3_shapes(vecs, n_valid, gen, compare_lib)
+    rec = shapes["slots=128"]
     out.append(kernel_record(
-        "knn_rescore", err, ms, pms,
-        bytes_moved=nsel * 32 * d * 2 + 8 * d * 2 + nsel * 4 + nsel * 32 * 4,
-        ops=2 * nsel * 32 * d, peak_ops=BF16_FLOPS))
-    log(f"K3 ok: {nsel} sub-blocks, err {err:.3g}, {ms:.4f} ms")
+        "knn_rescore", rec["max_abs_err"], rec["ms"], rec["plain_ms"],
+        *k3_work(128, 8, d), peak_ops=BF16_FLOPS))
+    print(json.dumps({"k3_shapes": shapes}), flush=True)
 
     # K4: the whole phrase stream, spans of two Zipf-drawn terms in the
     # engine's 4-span bucket (the record); then 32 real spans, the longest
@@ -439,6 +489,150 @@ def phase_kernels(reader, rng, probe_lib):
     log(f"K4 ok: {pp} positions, exact at 4 and 32 spans, {ms:.4f} ms "
         f"(4 spans, 2 real), {ms32:.4f} ms (32 real spans)")
     return out
+
+
+def k1_batch(reader, rng, scal, b=64, n_plans=4):
+    """K1 over a batch's combined plan, as the batched fused program
+    builds it (``build_batch_plan_aligned``) for ``b`` Zipf-drawn single
+    terms, their Zipf-head parts left to the dense rows. Checked against
+    its plain twin (rtol 1e-5) and timed over ``n_plans`` such batches in
+    turn, beside the fill of its b x cap scores alone."""
+    import torch
+
+    from orama_core_tpu_torch.ops import bm25
+
+    cap = reader.capacity
+    c = reader._string[0].committed
+    gi = c.global_info()
+    cols = reader._device.string_arrays(c)
+    _rows, row_by_term = reader._device.dense_term_rows(c, cap, gi.avgdl)
+    term_df, ts = c.term_df(), c.term_starts
+    plans, posts = [], []
+    for _ in range(n_plans):
+        tids = (rng.pareto(1.2, b) * 50).astype(int) % N_TERMS
+        rows = [bm25.split_spans_dense([(int(t), int(t) + 1)], ts,
+                                       row_by_term or {}, term_df,
+                                       gi.total_documents)[:2] for t in tids]
+        plan = bm25.build_batch_plan_aligned(rows)
+        plans.append(([torch.as_tensor(a, device="cuda") for a in plan],
+                      dict(n_docs=cap, n_blocks=len(plan[0]), b=b)))
+        posts.append(sum(sum(p_len) for _lo, p_len in rows))
+    args, kw = plans[0]
+    got = bm25.bm25_scores_blocked_aligned_batch(*cols, *args, *scal, **kw)
+    want = bm25.bm25_scores_blocked_aligned_batch_plain(*cols, *args, *scal,
+                                                        **kw)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    require(torch.allclose(got, want, rtol=1e-5, atol=1e-6),
+            f"K1 over a B={b} combined plan disagrees: max err {err}")
+    require(int((got > 0).sum()) > 0, "K1 batch scored nothing")
+    del got, want
+    ms = time_ms([lambda a=a, k=k: bm25.bm25_scores_blocked_aligned_batch(
+        *cols, *a, *scal, **k) for a, k in plans], 20)
+    pms = time_ms([lambda a=a, k=k: bm25.bm25_scores_blocked_aligned_batch_plain(
+        *cols, *a, *scal, **k) for a, k in plans], 4)
+    fill_ms = time_ms(lambda: torch.zeros(b * cap, dtype=torch.float32,
+                                          device="cuda"), 20)
+    n_post = float(np.mean(posts))
+    blocks = float(np.mean([k["n_blocks"] for _a, k in plans]))
+    bound, _by = bound_ms(n_post * 16 + blocks * 16 + b * cap * 4,
+                          n_post * 20, F32_FLOPS)
+    res = {"rows": b, "postings": posts, "n_blocks": [k["n_blocks"] for
+                                                      _a, k in plans],
+           "max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": bound,
+           "fill_ms": fill_ms, "fill_share": fill_ms / ms}
+    log(f"K1 batch ok: {res}")
+    return res
+
+
+def k3_work(nsel, q, d, sub=32):
+    """(bytes, operations) K3 must spend: the selected slabs, the queries
+    and the ids read once, the sims written once; a multiply-add per slab
+    element."""
+    return (nsel * sub * d * 2 + q * d * 2 + nsel * 4 + nsel * sub * 4,
+            2 * nsel * sub * d)
+
+
+def k3_shapes(vecs, n_valid, gen, compare_lib, k=16, sub=32):
+    """K3 at Q = 8, 64 and 256 (128, 1,024 and 4,096 slots) on the rows
+    that K2 and the phase-2 selection pick for random unit queries:
+    checked against its plain version (1e-4), then timed over 24 query
+    batches' selections in turn (so their slabs are read from memory,
+    past the L2), with its bound; and ``compare_lib`` (another build of
+    K3 with the same C entry point) on the same selections."""
+    import torch
+
+    from orama_core_tpu_torch.ops import _cuda, knn
+
+    d = vecs.shape[1]
+    out = {}
+    for q in (8, 64, 256):
+        sel = []
+        for _ in range(24):
+            qx = torch.randn(q, d, generator=gen, device="cuda")
+            qx = (qx / qx.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+            mx, _ = knn.subblock_max(vecs, qx, sub, n_valid)
+            sel.append((qx, knn._tiered_subblock_topk(mx, k).reshape(-1)
+                        .to(torch.int32)))
+            del mx
+        qx, ids = sel[0]
+        got = knn.rescore_subblocks(vecs, qx, ids, k, sub)
+        want = knn.rescore_subblocks_plain(vecs, qx, ids, k, sub)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        require(err <= 1e-4, f"K3 disagrees at Q={q}: {err}")
+        nsel = ids.numel()
+        ms = time_ms([lambda q_=q_, i_=i_: knn.rescore_subblocks(
+            vecs, q_, i_, k, sub) for q_, i_ in sel], 96)
+        pms = time_ms([lambda q_=q_, i_=i_: knn.rescore_subblocks_plain(
+            vecs, q_, i_, k, sub) for q_, i_ in sel], 24)
+        b, _by = bound_ms(*k3_work(nsel, q, d, sub), BF16_FLOPS)
+        rec = {"slots": nsel, "queries": q, "max_abs_err": err, "ms": ms,
+               "plain_ms": pms, "bound_ms": b, "share": b / ms}
+        if compare_lib is not None:
+            outs = [torch.empty(nsel, sub, device="cuda") for _ in sel]
+
+            def other(i):
+                q_, i_ = sel[i]
+                _cuda.check(compare_lib.knn_rescore(
+                    vecs.data_ptr(), q_.data_ptr(), i_.data_ptr(),
+                    outs[i].data_ptr(), nsel, d, q, k, sub, _cuda.stream()),
+                    "compared K3")
+
+            other(0)
+            torch.cuda.synchronize()
+            require((outs[0] - want).abs().max().item() <= 1e-4,
+                    f"the compared K3 disagrees at Q={q}")
+            rec["compare_ms"] = time_ms([lambda i=i: other(i)
+                                         for i in range(len(sel))], 96)
+        out[f"slots={nsel}"] = rec
+        log(f"K3 ok at Q={q}: {rec}")
+        del sel, got, want
+    return out
+
+
+def build_compare_k3(src):
+    """``--k3-compare DIR``: DIR's ``orama_core_tpu_torch/csrc/
+    knn_rescore.cu`` (an earlier commit's K3, the same C entry point)
+    built into build/k3_compare/ and loaded."""
+    import ctypes
+
+    from orama_core_tpu_torch.ops import _cuda
+
+    cu = os.path.join(src, "orama_core_tpu_torch", "csrc", "knn_rescore.cu")
+    require(os.path.exists(cu), f"--k3-compare: no {cu}")
+    out = os.path.join(ROOT, "build", "k3_compare")
+    os.makedirs(out, exist_ok=True)
+    so = os.path.join(out, "libknn_rescore.so")
+    res = subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-I",
+                          os.path.dirname(cu), "-o", so, cu],
+                         capture_output=True, text=True)
+    require(res.returncode == 0, f"the compared K3 did not build:\n"
+            f"{res.stdout}{res.stderr}")
+    lib = ctypes.CDLL(so)
+    lib.knn_rescore.argtypes = _cuda.SIGNATURES["knn_rescore"]["knn_rescore"]
+    lib.knn_rescore.restype = ctypes.c_int
+    return lib
 
 
 # Measurement probes of K1's parts (not kernels of the port): the K1 design
@@ -714,14 +908,15 @@ def check_k2(vecs, qd, n_valid):
 
 
 def phase_q_sweep(vecs, n_valid, mv_vecs, mv_docs, mv_valid, rng):
-    """K2 and K6 at Q = 1 (the engine's shape), 8 and 64 (batched
-    serving's): each checked against its plain version and timed, with
-    its bound. K2 on the padded 1M-row corpus, K6 on the chunked one."""
+    """K2 and K6 at Q = 1 (the engine's shape), 8 and 64, and K2 at 256
+    (batched serving's largest batch, four 64-query corpus passes): each
+    checked against its plain version and timed, with its bound. K2 on
+    the padded 1M-row corpus, K6 on the chunked one."""
     from orama_core_tpu_torch.ops import knn
 
     d = vecs.shape[1]
     rows = {}
-    for q in (1, 8, 64):
+    for q in (1, 8, 64, 256):
         qd = unit_queries(rng, q, d)
         err, _ = check_k2(vecs, qd, n_valid)
         ms = time_ms(lambda: knn.subblock_max(vecs, qd, 32, n_valid), 20)
@@ -729,6 +924,8 @@ def phase_q_sweep(vecs, n_valid, mv_vecs, mv_docs, mv_valid, rng):
         rows[f"knn_subblock_max/Q={q}"] = {
             "ms": ms, "bound_ms": b, "max_abs_err": err}
         log(f"K2 Q={q}: err {err:.3g}, {ms:.4f} ms, bound {b:.4f} ms")
+        if q > 64:
+            continue  # K6 serves no batch: the chunked index is not batched
         err, nbad, ms = check_k6(mv_vecs, mv_docs, qd, mv_valid, 8)
         b, _ = bound_ms(*k6_work(mv_vecs.shape[0], mv_valid, d, q),
                         BF16_FLOPS)
@@ -885,6 +1082,303 @@ def phase_engine(readers, rng, n_queries=32):
         p50[mode] = float(np.percentile(lat, 50))
         log(f"{mode}: p50 {p50[mode]:.3f} ms, launches {counts}")
     return p50, totals
+
+
+BATCH_MODES = {  # mode: (search mode, kernels every batch must launch)
+    "vector": ("vector", ("knn_subblock_max", "knn_rescore")),
+    "fulltext": ("fulltext", ("bm25_scan",)),
+    "hybrid_rrf": ("hybrid", ("bm25_scan",)),
+}
+BATCH_SIZES = (8, 64, 256)
+
+
+def phase_batch(reader, cpu_reader, rng, profile=False):
+    """Batched serving on the exact collection: ``search_batch`` at B = 8,
+    64 and 256 per mode, the launch counts reset before and read after
+    each (mode, B). Throughput is every query of a window of back-to-back
+    batches over the window's whole wall time; the batch p50 beside it
+    is a latency. Every row of the first batch must give the hits of the
+    same reader's single-query ``search`` (the count-flip allowance of
+    phase_engine for vector rows), and one batch of 8 per mode those of
+    the CPU reader. Returns ({mode: {B: metrics}}, launch totals)."""
+    import torch
+
+    from orama_core_tpu_torch.models.ai_service import AIService
+    from orama_core_tpu_torch.ops import _cuda
+    from orama_core_tpu_torch.types import SearchParams
+
+    ai = AIService()
+    totals = {k: 0 for k in _cuda.LAUNCHES}
+    res = {}
+    for mode, (kind, expect) in BATCH_MODES.items():
+        res[mode] = {}
+        for b in BATCH_SIZES:
+            n_batches = 32 if b < 256 else 12
+            batches = [[SearchParams.from_json(dict(term=zipf_term(rng),
+                                                    mode=kind))
+                        for _ in range(b)] for _ in range(n_batches + 1)]
+            reader.search_batch(batches[0], ai)  # first-use allocations
+            torch.cuda.synchronize()
+            _cuda.reset_launches()
+            lat, outs = [], []
+            t_window = time.perf_counter()
+            for params in batches[1:]:
+                t0 = time.perf_counter()
+                outs.append(reader.search_batch(params, ai))
+                lat.append(time.perf_counter() - t0)
+            window = time.perf_counter() - t_window
+            counts = dict(_cuda.LAUNCHES)
+            for k, v in counts.items():
+                totals[k] += v
+            for name in expect:
+                require(counts[name] > 0,
+                        f"batch {mode} B={b}: {name} was never launched")
+            for params, got in zip(batches[1:2], outs[:1]):
+                require(len(got) == b, f"batch {mode}: {len(got)} rows")
+                for i, (p, (ranked, n)) in enumerate(zip(params, got)):
+                    want, want_n, _ = reader.search(p, ai)
+                    check_hits(ranked, want, 1e-4,
+                               f"batch {mode} B={b} row {i} vs single")
+                    # a similarity within rounding of zero may change
+                    # sign between the batch's product and the single
+                    # query's: allow that many flips where vectors count
+                    slack = 2 if kind != "fulltext" else 0
+                    require(abs(n - want_n) <= slack,
+                            f"batch {mode} B={b} row {i}: count {n} vs "
+                            f"{want_n}")
+            require(sum(1 for r in outs[0] if r[1] > 0) >= b // 2,
+                    f"batch {mode} B={b}: most rows matched nothing")
+            row = {"qps": b * n_batches / window, "window_s": window,
+                   "batches": n_batches,
+                   "batch_p50_ms": float(np.percentile(lat, 50)) * 1e3,
+                   "batch_max_ms": max(lat) * 1e3, "launches": counts}
+            if profile:
+                row.update(profile_batches(reader, ai, batches[1:3]))
+            res[mode][b] = row
+            log(f"batch {mode} B={b}: {row}")
+        # one batch of 8 against the CPU reader
+        params = [SearchParams.from_json(dict(term=zipf_term(rng), mode=kind))
+                  for _ in range(8)]
+        got = reader.search_batch(params, ai)
+        want = cpu_reader.search_batch(params, ai)
+        for i, ((g, gn), (w, wn)) in enumerate(zip(got, want)):
+            check_hits(g, w, 1e-4, f"batch {mode} row {i} vs CPU")
+            require(abs(gn - wn) <= (2 if kind != "fulltext" else 0),
+                    f"batch {mode} row {i}: count {gn} vs CPU {wn}")
+    return res, totals
+
+
+def phase_two_fields(reader, rng, b=64, n_batches=4):
+    """Fulltext and hybrid RRF on the exact collection with a ``title``
+    field beside ``body`` (``with_title``): windows of ``n_batches``
+    batches of ``b`` queries through ``search_batch``, which sends two
+    string fields to the per-row span scorer, against the same queries
+    one by one through ``search`` (the single fused program, K1 per
+    field). queries/s over each window's wall time, and the launches of
+    each window; every row of the first batch must give its single
+    query's hits."""
+    import torch
+
+    from orama_core_tpu_torch.models.ai_service import AIService
+    from orama_core_tpu_torch.ops import _cuda
+    from orama_core_tpu_torch.types import SearchParams
+
+    ai = AIService()
+    res = {}
+    for mode, kind in (("fulltext", "fulltext"), ("hybrid_rrf", "hybrid")):
+        batches = [[SearchParams.from_json(dict(term=zipf_term(rng), mode=kind))
+                    for _ in range(b)] for _ in range(n_batches + 1)]
+        reader.search_batch(batches[0], ai)  # first-use allocations
+        for p in batches[0][:4]:
+            reader.search(p, ai)
+        row = {"rows": b, "batches": n_batches}
+        for how in ("batch", "single"):
+            torch.cuda.synchronize()
+            _cuda.reset_launches()
+            t0 = time.perf_counter()
+            if how == "batch":
+                outs = [reader.search_batch(ps, ai) for ps in batches[1:]]
+            else:
+                singles = [reader.search(p, ai) for ps in batches[1:] for p in ps]
+            wall = time.perf_counter() - t0
+            row[f"{how}_qps"] = b * n_batches / wall
+            row[f"{how}_launches"] = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+        slack = 2 if kind != "fulltext" else 0
+        for i, ((ranked, n), (want, want_n, _)) in enumerate(
+                zip(outs[0], singles[:b])):
+            check_hits(ranked, want, 1e-4, f"two fields {mode} row {i}")
+            require(abs(n - want_n) <= slack,
+                    f"two fields {mode} row {i}: count {n} vs {want_n}")
+        res[mode] = row
+        log(f"two fields {mode} B={b}: {row}")
+    return res
+
+
+def phase_rrf_ranks(n, rng, sizes=(1, 4, 8, 64, 256), k=10, iters=6):
+    """The batched RRF's two exact candidate-rank methods, between which
+    ``fusion._candidate_ranks`` picks by the row count
+    (``_SORT_MAX_ROWS``), on [B, n] scores shaped like the batch phase's
+    hybrid rows (a BM25 row matching 0.01-20% of the docs, a dense
+    similarity row): each row's stable sort gathered at the 2c candidates
+    (``fusion._ranks``) and ``fusion._histogram_ranks``. Both must give
+    the same integers. Device ms per (fulltext, vector) pair from
+    ``time_ms``; wall ms per pair, host launches included, from the host
+    clock around synchronised calls."""
+    import torch
+
+    from orama_core_tpu_torch.ops import fusion
+    from orama_core_tpu_torch.ops.topk import topk_stable
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(int(rng.integers(2**31)))
+    c = fusion.rrf_candidate_count(k)
+    out = {}
+    for b in sizes:
+        share = torch.logspace(-4, -0.7, b, device="cuda")[:, None]
+        ft = torch.rand(b, n, device="cuda", generator=gen) * 10
+        ft = torch.where(torch.rand(b, n, device="cuda", generator=gen) < share,
+                         ft, 0.0)
+        vec = torch.rand(b, n, device="cuda", generator=gen) * 0.8 - 0.3
+        g = torch.cat([topk_stable(ft, c)[1], topk_stable(vec, c)[1]], dim=1)
+        methods = {"sort": lambda s: torch.gather(fusion._ranks(s), 1, g),
+                   "histogram": lambda s: fusion._histogram_ranks(s, g)}
+        for s in (ft, vec):
+            require(torch.equal(methods["sort"](s), methods["histogram"](s)),
+                    f"rrf ranks B={b}: the two methods differ")
+        row = {}
+        for name, fn in methods.items():
+            def pair(fn=fn):
+                return fn(ft), fn(vec)
+            row[f"{name}_device_ms"] = time_ms(pair, iters)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                pair()
+            torch.cuda.synchronize()
+            row[f"{name}_wall_ms"] = (time.perf_counter() - t0) * 1e3 / iters
+        out[b] = row
+        log(f"rrf ranks B={b}: {row}")
+        del ft, vec, g, share
+        torch.cuda.empty_cache()
+    return out
+
+
+def profile_batches(reader, ai, batches):
+    """Device ms per batch and the device's idle share over ``batches``
+    (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for params in batches:
+            reader.search_batch(params, ai)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    evts = prof.key_averages()
+    busy_us = sum(_device_us(e) for e in evts)
+    by_name = {}
+    for e in evts:
+        if _device_us(e) > 0:
+            by_name[e.key[:60]] = by_name.get(e.key[:60], 0.0) + _device_us(e)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    n = len(batches)
+    return {"device_ms_per_batch": busy_us / n / 1e3,
+            "wall_ms_per_batch_profiled": wall_us / n / 1e3,
+            "device_idle_share": (1.0 - busy_us / wall_us) if busy_us else None,
+            "top_device_ms_per_batch": {k: v / n / 1e3 for k, v in top}}
+
+
+def phase_batcher(seed=11, n_threads=24, device="cuda"):
+    """The micro-batcher through the normal entry point: ``build_orama``
+    on the card with ``query_batching=True`` serves concurrent searches
+    from ``n_threads`` threads, which must coalesce (a batch of more than
+    one query) and give the hits and counts of unbatched searches."""
+    import threading
+
+    from orama_core_tpu_torch import build_orama
+    from orama_core_tpu_torch.config import OramaxConfig
+    from orama_core_tpu_torch.ops import _cuda
+    from orama_core_tpu_torch.types import SearchParams
+
+    work = os.path.join(ROOT, "build", "chip_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    cfg = OramaxConfig()
+    cfg.writer_side.data_dir = os.path.join(work, "w")
+    cfg.reader_side.data_dir = os.path.join(work, "r")
+    cfg.ai.backend = "fake"
+    cfg.gpu.query_batching = True
+    cfg.gpu.batch_wait_ms = 10.0
+    rng = np.random.default_rng(seed)
+    vocab = [f"w{i}" for i in range(400)]
+    zipf = 1.0 / np.arange(1, 401) ** 0.8
+    zipf /= zipf.sum()
+    engine = build_orama(cfg, start_background=False, device=device)
+    sizes = []
+    try:
+        engine.write_side.create_collection("master", "c", read_api_key="r",
+                                            write_api_key="w",
+                                            embedding_model="fake-base")
+        engine.flush()
+        # one string field, as the batched fused program serves (a second
+        # one sends fulltext batches to the per-mode span scorer)
+        docs = [{k: v for k, v in doc.items() if k != "title"}
+                for doc in _short_docs(rng, 5000, vocab, zipf)]
+        for lo in range(0, len(docs), 500):
+            engine.write_side.write("c", docs[lo:lo + 500], "w")
+            engine.flush()
+        engine.commit()
+        side = engine.read_side
+        reader = side._reader("c")
+        orig = side._batcher._run_batch
+        side._batcher._run_batch = lambda key, ps: (sizes.append(len(ps))
+                                                   or orig(key, ps))
+        bodies = [{"term": f"w{int(t)}", "mode": m}
+                  for t, m in zip(rng.integers(0, 60, n_threads),
+                                  ("fulltext", "vector", "hybrid") * n_threads)]
+        for body in bodies[:3]:  # first-use allocations, outside the check
+            side.search("c", SearchParams.from_json(body), "r")
+        _cuda.reset_launches()
+        sizes.clear()
+        outs = {}
+        go = threading.Barrier(n_threads)
+
+        def q(i):
+            go.wait()
+            outs[i] = side.search("c", SearchParams.from_json(bodies[i]), "r")
+
+        threads = [threading.Thread(target=q, args=(i,))
+                   for i in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        require(not any(t.is_alive() for t in threads),
+                "batcher: a search did not return")
+        launches = dict(_cuda.LAUNCHES)
+        require(len(outs) == n_threads, "batcher: a search failed")
+        require(max(sizes, default=0) > 1,
+                f"batcher: no batch of more than one query ({sizes})")
+        for k in ("bm25_scan", "knn_subblock_max", "knn_rescore"):
+            require(launches[k] > 0, f"batcher: {k} never ran")
+        storage = side.doc_storage["c"]
+        for i, body in enumerate(bodies):
+            ranked, count, _ = reader.search(SearchParams.from_json(body),
+                                             side.ai)
+            want = [(storage.get(d)["id"], sc) for d, sc in ranked]
+            check_hits([(h.id, h.score) for h in outs[i].hits], want, 1e-4,
+                       f"batcher {body}")
+            slack = 2 if body["mode"] != "fulltext" else 0
+            require(abs(outs[i].count - count) <= slack,
+                    f"batcher {body}: count {outs[i].count} vs {count}")
+    finally:
+        engine.close()
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"batcher: {n_threads} concurrent searches in batches of {sizes}, "
+        "hits equal to unbatched searches")
+    return {"threads": n_threads, "batch_sizes": sizes, "launches": launches}
 
 
 def _device_us(evt) -> float:
@@ -1118,7 +1612,11 @@ def main() -> int:
             f"{(torch.cuda.memory_allocated() - before) / 2**30:.2f} GiB")
         readers[name] = reader
     rng = np.random.default_rng(42)
-    records = phase_kernels(readers["exact"], rng, probe_lib)
+    compare_lib = None
+    if "--k3-compare" in sys.argv[1:]:
+        compare_lib = build_compare_k3(
+            sys.argv[sys.argv.index("--k3-compare") + 1])
+    records = phase_kernels(readers["exact"], rng, probe_lib, compare_lib)
     records += phase_kernels_int8_mv(readers["int8"], readers["chunked"], rng)
     for rec in records:
         print(json.dumps(rec), flush=True)
@@ -1133,7 +1631,19 @@ def main() -> int:
     pairs = {name: (readers[name], make_reader(arr, "cpu", index))
              for name, (arr, index) in collections.items()}
     p50, launches = phase_engine(pairs, rng)
+    batch, batch_launches = phase_batch(*pairs["exact"], rng,
+                                        profile="--profile" in sys.argv[1:])
+    for k, v in batch_launches.items():
+        launches[k] += v
+    print(json.dumps({"batch": batch, "card": card}), flush=True)
     del pairs
+    titled = make_reader(with_title(arrays), "cuda")
+    titled.warmup()
+    print(json.dumps({"two_fields": phase_two_fields(titled, rng),
+                      "card": card}), flush=True)
+    del titled
+    print(json.dumps({"rrf_ranks": phase_rrf_ranks(
+        readers["exact"].capacity, rng), "card": card}), flush=True)
     if "--profile" in sys.argv[1:]:
         phase_profile(readers, rng)
     for rec in records:
@@ -1142,6 +1652,8 @@ def main() -> int:
     del readers
     for name in BUILD_PASSES:
         phase_build_orama(name)
+    batcher = phase_batcher()
+    print(json.dumps({"batcher": batcher, "card": card}), flush=True)
     print(json.dumps({"p50_ms": p50, "card": card}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": records}), flush=True)

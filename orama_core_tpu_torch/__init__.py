@@ -160,6 +160,7 @@ class Orama:
         self._stop.set()
         for t in self._threads:
             t.join(timeout=2.0)
+        self.read_side.close()
 
 
 def build_orama(

@@ -166,7 +166,8 @@ class GpuConfig:
     # Selective-filter fast path: when a query's filters match at most
     # this many docs, the vector path scores just those docs' rows
     selective_filter_max: int = 2048
-    # Serving micro-batching is a later slice: True raises
+    # Serving micro-batching (server/batcher.py): concurrent searches of
+    # one compatibility group coalesce into one search_batch call
     query_batching: bool = False
     batch_max: int = 256
     batch_wait_ms: float = 2.0

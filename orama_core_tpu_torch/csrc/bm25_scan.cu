@@ -45,6 +45,14 @@
 // and griddepcontrol.wait holds each warp's first add until the fill is
 // complete. Everything else the kernel reads was written before the fill
 // began, as the stream orders the fill itself behind it.
+//
+// Batches: with a row id per plan block (row_id != NULL), one launch scans
+// the combined plan of a whole query batch (the reference's
+// hybrid_fused_topk_batch: each row's real blocks, then the pad blocks)
+// into scores[b, n_docs], each posting adding to
+// scores[row_id[block] * n_docs + doc], indexed in 64 bits. The row id
+// travels with the plan entry, fetched in the same round trip. Without
+// row ids the single-row instantiation is compiled, unchanged.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -61,14 +69,15 @@ constexpr float kK1 = 1.2f;
 constexpr float kB = 0.75f;
 constexpr unsigned kFull = 0xffffffffu;
 
+template <bool kRows>
 __global__ void __launch_bounds__(kThreads) bm25_scan_kernel(
     const int4* __restrict__ docs, const float4* __restrict__ tf,
     const float4* __restrict__ ni, const float4* __restrict__ lens,
     const int* __restrict__ blk, const int* __restrict__ lo,
-    const int* __restrict__ hi, const float* __restrict__ p_boost,
-    const float* __restrict__ p_avgdl, const float* __restrict__ p_nfd,
-    float boost, float avgdl, float nfd, float* __restrict__ scores,
-    int n_blocks) {
+    const int* __restrict__ hi, const int* __restrict__ row_id,
+    const float* __restrict__ p_boost, const float* __restrict__ p_avgdl,
+    const float* __restrict__ p_nfd, float boost, float avgdl, float nfd,
+    float* __restrict__ scores, int n_blocks, long long n_docs) {
   // a scalar lives on the card (the fused program's staging) or travels
   // as a kernel argument
   if (p_boost) boost = *p_boost;
@@ -83,12 +92,13 @@ __global__ void __launch_bounds__(kThreads) bm25_scan_kernel(
   for (long long u0 = w; u0 < n_units; u0 += 32 * n_warps) {
     // lane i: the plan entry of unit u0 + i * n_warps
     const long long my_u = u0 + lane * n_warps;
-    int pb = 0, pl = 0, ph = 0;
+    int pb = 0, pl = 0, ph = 0, pr = 0;
     if (my_u < n_units) {
       const int b = (int)(my_u / kChunks);
       pb = blk[b];
       pl = lo[b];
       ph = hi[b];
+      if (kRows) pr = row_id[b];
     }
     // units up to the first pad block (hi == 0): real blocks come first
     const unsigned live = __ballot_sync(kFull, my_u < n_units && ph > 0);
@@ -97,12 +107,15 @@ __global__ void __launch_bounds__(kThreads) bm25_scan_kernel(
       int4 d[kAhead];
       float4 t[kAhead], n[kAhead], l[kAhead];
       int off[kAhead], elo[kAhead], ehi[kAhead];
+      float* out[kAhead];
 #pragma unroll
       for (int r = 0; r < kAhead; ++r) {
         const int j = min(j0 + r, 31);
         const int b_ = __shfl_sync(kFull, pb, j);
         elo[r] = __shfl_sync(kFull, pl, j);
         ehi[r] = j0 + r < n_live ? __shfl_sync(kFull, ph, j) : 0;
+        out[r] = kRows ? scores + (long long)__shfl_sync(kFull, pr, j) * n_docs
+                       : scores;
         const long long u = u0 + (long long)j * n_warps;
         off[r] = (int)(u % kChunks) * kChunk + 4 * lane;
         if (off[r] < ehi[r] && off[r] + 4 > elo[r]) {
@@ -129,7 +142,7 @@ __global__ void __launch_bounds__(kThreads) bm25_scan_kernel(
           const float idf = log1pf(
               fmaxf((nfd - nn[e] + 0.5f) / (nn[e] + 0.5f), 0.0f));
           const float den = tt[e] + kK1 * (1.0f - kB + kB * ll[e] / avgdl_c);
-          atomicAdd(&scores[dd[e]],
+          atomicAdd(&out[r][dd[e]],
                     idf * boost * tt[e] * (kK1 + 1.0f) / fmaxf(den, 1e-9f));
         }
       }
@@ -143,12 +156,15 @@ int g_grid_cap = 0;  // SMs x kBlocksPerSm, read once
 
 }  // namespace
 
+// row_id: NULL for one row of scores, else int32[n_blocks] (the batch
+// row of each plan block, scores being [rows, n_docs])
 extern "C" int bm25_scan(const void* docs, const void* tf, const void* ni,
                          const void* lens, const void* blk, const void* lo,
-                         const void* hi, const void* p_boost,
-                         const void* p_avgdl, const void* p_nfd, float boost,
-                         float avgdl, float nfd, void* scores, int n_blocks,
-                         void* stream) {
+                         const void* hi, const void* row_id,
+                         const void* p_boost, const void* p_avgdl,
+                         const void* p_nfd, float boost, float avgdl,
+                         float nfd, void* scores, int n_blocks,
+                         long long n_docs, void* stream) {
   if (n_blocks <= 0) return (int)cudaGetLastError();
   if (g_grid_cap == 0) {
     int dev = 0, sms = 0;
@@ -169,9 +185,11 @@ extern "C" int bm25_scan(const void* docs, const void* tf, const void* ni,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, bm25_scan_kernel, (const int4*)docs, (const float4*)tf,
-      (const float4*)ni, (const float4*)lens, (const int*)blk, (const int*)lo,
-      (const int*)hi, (const float*)p_boost, (const float*)p_avgdl,
-      (const float*)p_nfd, boost, avgdl, nfd, (float*)scores, n_blocks);
+      &cfg, row_id ? bm25_scan_kernel<true> : bm25_scan_kernel<false>,
+      (const int4*)docs, (const float4*)tf, (const float4*)ni,
+      (const float4*)lens, (const int*)blk, (const int*)lo, (const int*)hi,
+      (const int*)row_id, (const float*)p_boost, (const float*)p_avgdl,
+      (const float*)p_nfd, boost, avgdl, nfd, (float*)scores, n_blocks,
+      n_docs);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }

@@ -20,8 +20,11 @@ the card, and no CUDA tensor is sent around a kernel.
 ``GpuConfig.vector_index`` "exact" (bf16 rows) and "int8" (the capacity
 mode: int8 codes and per-row scales, K5) are served; multi-vector
 (chunked) docs of an exact index take the segment-aware fused kNN (K6).
-Left out (each raises or is absent): the sharded/mesh branches,
-``search_batch`` and the batched fused program, and IVF/PQ.
+``search_batch`` serves a micro-batch: unfiltered vector rows through the
+fused kNN at the batch's size, other rows through the batched fused
+program (one K1 launch over the batch's combined plan, one corpus
+product), phrase rows one by one. Left out (each raises or is absent):
+the sharded/mesh branches and IVF/PQ.
 """
 
 from __future__ import annotations
@@ -246,6 +249,19 @@ class _DeviceCache:
         for k in stale:
             del self._store[k]
         return self._get(s, key, build)
+
+    def span_arrays(self, s: CommittedStringIndex, phrase: bool):
+        """The span scorer's index arrays: (term_starts, pos_starts,
+        positions) on the device; the positions only for ``phrase`` (None
+        otherwise: a non-phrase query never reads them)."""
+        ts = self._get(s, "term_starts", lambda: self.put(
+            np.asarray(s.term_starts, np.int64)))
+        if not phrase:
+            return ts, None, None
+        ps, pos = self._get(s, "positions", lambda: (
+            self.put(np.asarray(s.pos_starts, np.int64)),
+            self.put(np.asarray(s.positions, np.int32))))
+        return ts, ps, pos
 
     def phrase_stream_arrays(self, s: CommittedStringIndex, cap: int):
         """K4's commit-static input: (terms, bits, bounds). ``terms`` and
@@ -1148,6 +1164,293 @@ class CollectionReader:
             return fusion_ops.minmax_fuse(ft, vec)
         return fusion_ops.rrf_fuse(ft, vec)
 
+    # -- batched serving (reference: collection_read.py:1867-2183) -----------
+
+    def search_vector_batch(
+        self,
+        terms: List[str],
+        ai_service,
+        filter_mask: torch.Tensor,
+        cand: Optional[np.ndarray] = None,
+    ) -> torch.Tensor:
+        """[B, cap] vector scores for a coalesced query batch (one corpus
+        product for all B queries). The batch shares one filter (the
+        batcher keys on it), so a selective candidate set applies to
+        every row."""
+        cap = self.capacity
+        scores = torch.zeros(len(terms), cap, dtype=torch.float32,
+                             device=self.device)
+        put = self._device.put
+        by_model: Dict[str, List[int]] = {}
+        for fid, f in self.fields.items():
+            if f.type == ValueType.EMBEDDING and f.model:
+                by_model.setdefault(f.model, []).append(fid)
+        fm_host = None
+        for model, fids in by_model.items():
+            q = ai_service.embed_query(model, terms)                # [B, D]
+            qn = q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-12)
+            q_dev = put(np.asarray(qn, np.float32))
+            for fid in fids:
+                vf = self._vector[fid]
+                if not vf.committed.is_empty:
+                    if cand is not None and self.cfg.vector_index == "exact":
+                        rows, row_docs = self._selective_vector_rows(
+                            vf.committed, cand
+                        )
+                        n = len(rows)
+                        n_pad = bucket_pad(max(n, 1), (256, 2048, 16384))
+                        r = np.zeros(n_pad, np.int32); r[:n] = rows
+                        dd = np.zeros(n_pad, np.int32); dd[:n] = row_docs
+                        v = np.zeros(n_pad, np.float32); v[:n] = 1.0
+                        vecs, _, _ = self._device.vector_arrays(vf.committed)
+                        scores = scores + vector_ops.selective_scores_batch(
+                            vecs, put(r), put(dd), put(v), q_dev, n_docs=cap,
+                        )
+                    else:
+                        # the exact product, whatever the index (the
+                        # reference's; read_side batches vector modes of
+                        # exact indexes only)
+                        vecs, docs, valid = self._device.vector_rows(
+                            vf.committed
+                        )
+                        scores = scores + vector_ops.brute_force_scores_batch(
+                            vecs, docs, valid, q_dev, filter_mask, n_docs=cap,
+                            identity=_vec_docs_identity(vf.committed),
+                        )
+                if not vf.uncommitted.is_empty:
+                    if fm_host is None:
+                        fm_host = _to_host(filter_mask)
+                    for row, term_q in enumerate(qn):
+                        host_out: Dict[int, float] = {}
+                        vf.uncommitted.search(term_q, fm_host, self.deleted,
+                                              host_out)
+                        if host_out:
+                            scores[row] = self._scatter_add(scores[row], host_out)
+        return scores
+
+    def search_fulltext_batch(
+        self, terms: List[str], boost: Dict[str, float],
+        filter_mask: torch.Tensor,
+    ) -> torch.Tensor:
+        """[B, cap] BM25 scores for a coalesced batch through the span
+        scorer (committed segments; uncommitted windows scored host-side
+        per row, as in the single-query path)."""
+        cap = self.capacity
+        scores = torch.zeros(len(terms), cap, dtype=torch.float32,
+                             device=self.device)
+        put = self._device.put
+        fm_host = None
+        for fid in self._string_properties(None):
+            f = self.fields[fid]
+            parser = get_parser(f.locale or self.default_locale)
+            expansions = [query_expansion(parser, t) for t in terms]
+            field_boost = float(boost.get(f.name, 1.0))
+            sf = self._string[fid]
+            committed = sf.committed
+            gi = committed.global_info() + sf.uncommitted.global_info()
+            span_pairs = [
+                expanded_spans(committed.term_dict, toks, stems)
+                for toks, stems in expansions
+            ]
+            span_rows = [spans for spans, _ in span_pairs]
+            surf_rows = [spans[:ns] for spans, ns in span_pairs]
+            ts_host = committed.term_starts
+            g_totals = [
+                int(sum(ts_host[hi] - ts_host[lo] for lo, hi in row))
+                for row in span_rows
+            ]
+            # Rows group by (phrase, own g bucket, own pp bucket): phrase is
+            # per row (a single-token query batched with a multi-token one
+            # gets no position boost), and a light query never pays a
+            # heavy one's posting budget
+            if max(g_totals, default=0) > 0:
+                max_tok = 32
+                d_docs, d_tf, d_ni, d_plens = self._device.string_arrays(
+                    committed
+                )
+                groups: Dict[Tuple[bool, int, int], List[int]] = {}
+                for row, (tokens, _stems) in enumerate(expansions):
+                    if g_totals[row] <= 0:
+                        continue
+                    phrase = len(tokens) > 1
+                    g_budget = bucket_pad(g_totals[row],
+                                          self.cfg.budget_bucket_steps)
+                    if phrase:
+                        # positions budget over SURFACE spans only: the
+                        # phrase boost never reads stem spans
+                        pp_total = int(sum(
+                            committed.pos_starts[ts_host[hi]]
+                            - committed.pos_starts[ts_host[lo]]
+                            for lo, hi in surf_rows[row]
+                        ))
+                        pp_budget = bucket_pad(max(pp_total, 1),
+                                               self.cfg.budget_bucket_steps)
+                    else:
+                        pp_budget = 1
+                    groups.setdefault((phrase, g_budget, pp_budget),
+                                      []).append(row)
+                for (phrase, g_budget, pp_budget), rows in sorted(groups.items()):
+                    d_tstarts, d_pstarts, d_pos = self._device.span_arrays(
+                        committed, phrase
+                    )
+                    # memory guard: at most _BATCH_SLOT_BUDGET gathered
+                    # postings per call
+                    chunk = max(1, self._BATCH_SLOT_BUDGET // g_budget)
+                    for c0 in range(0, len(rows), chunk):
+                        rows_c = rows[c0: c0 + chunk]
+                        spans_b = np.zeros((len(rows_c), max_tok, 2), np.int32)
+                        ph_spans_b = np.zeros_like(spans_b)
+                        for i, r in enumerate(rows_c):
+                            spans = span_rows[r][:max_tok]
+                            if spans:
+                                spans_b[i, : len(spans)] = spans
+                            surf = surf_rows[r][:max_tok]
+                            if surf:
+                                ph_spans_b[i, : len(surf)] = surf
+                        sub = bm25_ops.bm25_scores_from_spans_batch(
+                            d_tstarts, d_docs, d_tf, d_ni, d_plens, d_pstarts,
+                            d_pos, put(spans_b), field_boost, filter_mask,
+                            float(np.float32(gi.avgdl)),
+                            # the combined committed + uncommitted N (the
+                            # reference's shared GlobalInfo)
+                            float(np.float32(gi.total_documents)),
+                            n_docs=cap, g_budget=g_budget,
+                            pp_budget=pp_budget, phrase=phrase,
+                            phrase_spans_b=put(ph_spans_b),
+                        )
+                        ridx = put(np.asarray(rows_c, np.int64))
+                        scores = scores.index_add(0, ridx, sub)
+            if not sf.uncommitted.is_empty:
+                if fm_host is None:
+                    fm_host = _to_host(filter_mask)
+                for row, (tokens, stems) in enumerate(expansions):
+                    host_out: Dict[int, float] = {}
+                    sf.uncommitted.search(
+                        tokens, field_boost, gi, fm_host, self.deleted,
+                        host_out, exact_tokens=stems,
+                    )
+                    if host_out:
+                        scores[row] = self._scatter_add(scores[row], host_out)
+        return scores
+
+    # Per-call cap on the span scorer's gathered postings: B * g_budget
+    # slots of intermediates. Larger groups split into chunks.
+    _BATCH_SLOT_BUDGET = 32 * 1024 * 1024
+
+    # Per-chunk cap on the batched fused program's dense intermediates:
+    # each chunk holds b * capacity f32 scores per modality (64M slots,
+    # 256 MB per modality)
+    _BATCH_DENSE_SLOTS = 64 * 1024 * 1024
+
+    def search_batch(
+        self, params_list: List[SearchParams], ai_service
+    ) -> List[Tuple[List[Tuple[int, float]], int]]:
+        """Batched search of compatible queries (same mode, filters, boost
+        and fusion; no facets): one device program scores the batch.
+        Returns [(ranked [(doc_id, score)], match count)] per query."""
+        if not params_list:
+            return []
+        p0 = params_list[0]
+        if len(params_list) == 1 and self._vector_fast_field(p0) is None:
+            # a lone query gains nothing from the batch program: the
+            # single-query fused program serves it
+            helig = self._hybrid_fused_eligible(p0)
+            if helig is not None:
+                ranked, count, _ = self._search_hybrid_fused(
+                    p0, ai_service, *helig
+                )
+                return [(ranked, count)]
+        # phrase rows take the single-query path (K4 costs the same per
+        # row either way); read_side._batchable applies the same policy
+        if p0.mode != SearchModeKind.VECTOR and any(
+            len(p.term.split()) > 1 for p in params_list
+        ):
+            out_mixed: List[Optional[Tuple[List[Tuple[int, float]], int]]] = (
+                [None] * len(params_list)
+            )
+            plain: List[int] = []
+            for i, p in enumerate(params_list):
+                if len(p.term.split()) > 1:
+                    ranked, count, _ = self.search(p, ai_service)
+                    out_mixed[i] = (ranked, count)
+                else:
+                    plain.append(i)
+            if plain:
+                sub = self.search_batch(
+                    [params_list[i] for i in plain], ai_service
+                )
+                for i, r in zip(plain, sub):
+                    out_mixed[i] = r
+            return out_mixed  # every slot filled above
+        if (
+            p0.mode == SearchModeKind.VECTOR
+            and all(p.vector is None for p in params_list)
+            and max(p.limit for p in params_list) <= 128
+        ):
+            fast_fid = self._vector_fast_field(p0)
+            if fast_fid is not None:
+                return self._search_batch_vector_topk_fast(
+                    params_list, ai_service, fast_fid
+                )
+        # the batched fused program: one committed string field at most,
+        # no live windows, at most one number filter, exact vectors
+        helig = self._hybrid_fused_eligible(p0)
+        if (
+            helig is not None
+            and (helig[0] == "fulltext" or self.cfg.vector_index == "exact")
+            and len(helig[1]) <= 1
+            and not helig[5]
+            and len(helig[3]) <= 1
+            and all(k in ("range", "eq") for k, _f, _p in helig[3])
+            and all(
+                not p.facets
+                and p.limit <= 1024
+                and p.vector is None
+                and (p0.mode == SearchModeKind.VECTOR or p.term.strip())
+                for p in params_list
+            )
+        ):
+            mode, sfids, vfid, filts, _facs, _live = helig
+            nf = (filts[0][1], filts[0][2]) if filts else None
+            return self._search_batch_hybrid_fused(
+                params_list, ai_service, mode,
+                sfids[0] if sfids else None, vfid, nf,
+            )
+        filter_mask = self._filter_mask(p0.where)
+        terms = [p.term for p in params_list]
+        cand = (
+            self._filter_candidates(p0.where)
+            if p0.mode != SearchModeKind.FULLTEXT else None
+        )
+        if p0.mode == SearchModeKind.VECTOR:
+            scores = self.search_vector_batch(terms, ai_service, filter_mask,
+                                              cand=cand)
+        elif p0.mode == SearchModeKind.FULLTEXT:
+            scores = self.search_fulltext_batch(terms, p0.boost, filter_mask)
+        else:
+            ft = self.search_fulltext_batch(terms, p0.boost, filter_mask)
+            vec = self.search_vector_batch(terms, ai_service, filter_mask,
+                                           cand=cand)
+            if p0.fusion == HybridFusion.MINMAX:
+                scores = torch.stack([fusion_ops.minmax_fuse(f, v)
+                                      for f, v in zip(ft, vec)])
+            else:
+                scores = torch.stack([fusion_ops.rrf_fuse(f, v)
+                                      for f, v in zip(ft, vec)])
+        k = min(max(p.limit for p in params_list), self.capacity)
+        vals_t, idx_t = topk_ops.topk_stable(scores, k)
+        counts_t = torch.sum(scores > 0, dim=1)
+        vals, idx, counts = _to_host(vals_t), _to_host(idx_t), _to_host(counts_t)
+        out = []
+        for row, p in enumerate(params_list):
+            ranked = [
+                (int(d), float(s))
+                for d, s in zip(idx[row][: p.limit], vals[row][: p.limit])
+                if s > 0.0
+            ]
+            out.append((ranked, int(counts[row])))
+        return out
+
     # -- fused kNN (K2 + K3 | K5 | K6) -----------------------------------------
 
     def _vector_fast_field(self, params: SearchParams) -> Optional[int]:
@@ -1319,6 +1622,14 @@ class CollectionReader:
                 f"embedding fields have [{c.dimension}]"
             )
         return self._vector_topk_fast_core([params], fid, qn[None, :])[0]
+
+    def _search_batch_vector_topk_fast(
+        self, params_list: List[SearchParams], ai_service, fid: int
+    ) -> List[Tuple[List[Tuple[int, float]], int]]:
+        q = ai_service.embed_query(self.fields[fid].model,
+                                   [p.term for p in params_list])
+        qn = q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-12)
+        return self._vector_topk_fast_core(params_list, fid, qn)
 
     # -- fused hybrid (one call per query; ops/hybrid.py) ---------------------
 
@@ -1745,6 +2056,179 @@ class CollectionReader:
                         values["false"] = int(counts[1])
                     facets_out[fname] = FacetResult(count=len(values), values=values)
         return ranked, count, facets_out
+
+    def _search_batch_hybrid_fused(
+        self,
+        params_list: List[SearchParams],
+        ai_service,
+        mode: str,
+        sfid: Optional[int],
+        vfid: Optional[int],
+        nf,
+    ) -> List[Tuple[List[Tuple[int, float]], int]]:
+        """Batched fused serving (ops/hybrid.hybrid_fused_topk_batch), the
+        micro-batcher's path for B > 1 through the single-query program's
+        primitives: every row's light-term posting spans go into ONE
+        combined aligned block plan, each block tagged with its row, so
+        the batch is one K1 launch into [b, cap]; Zipf-head terms ride a
+        [b, H] idf-weight product against the commit-static dense rows;
+        the vector half is one corpus product for all b queries. One host
+        sync for all memory chunks (a chunk bounds b * cap dense floats).
+        Rows are not padded to the reference's batch buckets: the port
+        runs eagerly, so a padding row would only add work."""
+        from ..ops import hybrid as hybrid_ops
+
+        cap = self.capacity
+        put = self._device.put
+        p0 = params_list[0]
+        b_real = len(params_list)
+        k = min(bucket_pad(max(p.limit for p in params_list), (16, 128, 1024)),
+                cap)
+        dev = self.device
+        zf = torch.zeros(1, dtype=torch.float32, device=dev)
+        zi = torch.zeros(1, dtype=torch.int32, device=dev)
+        dense_rows = None
+        if sfid is not None:
+            f = self.fields[sfid]
+            parser = get_parser(f.locale or self.default_locale)
+            sf = self._string[sfid]
+            committed = sf.committed
+            gi = committed.global_info() + sf.uncommitted.global_info()
+            gi_avgdl, gi_n = gi.avgdl, gi.total_documents
+            field_boost = float(p0.boost.get(f.name, 1.0))
+            ts_host = committed.term_starts
+            # windows are empty by eligibility, so avgdl is commit-static
+            dense_rows, row_by_term = self._device.dense_term_rows(
+                committed, cap, gi_avgdl
+            )
+            term_df = committed.term_df() if dense_rows is not None else None
+            row_plans: List[Tuple[List[int], List[int]]] = []
+            row_sels: List[Tuple[List[int], List[float]]] = []
+            for p in params_list:
+                tokens, stems = query_expansion(parser, p.term)
+                # non-phrase by construction (search_batch routes phrases)
+                spans = expanded_spans(committed.term_dict, tokens, stems)[0]
+                if dense_rows is not None:
+                    p_lo, p_len, sel, w = bm25_ops.split_spans_dense(
+                        spans, ts_host, row_by_term, term_df, gi_n
+                    )
+                else:
+                    p_lo = [int(ts_host[lo]) for lo, hi in spans]
+                    p_len = [int(ts_host[hi] - ts_host[lo]) for lo, hi in spans]
+                    sel, w = [], []
+                row_plans.append((p_lo, p_len))
+                row_sels.append((sel, w))
+            d_docs, d_tf, d_ni, d_plens = self._device.string_arrays(committed)
+        else:
+            gi_avgdl = gi_n = 1.0
+            field_boost = 1.0
+            d_docs = zi
+            d_tf = d_ni = d_plens = zf
+
+        vf = None
+        if vfid is not None:
+            vf = self._vector[vfid]
+            q = ai_service.embed_query(self.fields[vfid].model,
+                                       [p.term for p in params_list])
+            qn = np.asarray(q, np.float32)
+            qn = qn / np.maximum(np.linalg.norm(qn, axis=1, keepdims=True),
+                                 1e-12)
+            qdim = qn.shape[1]
+            vecs, vec_docs, vec_valid = self._device.vector_rows(vf.committed)
+        else:
+            qdim = 0
+            vecs = vec_docs = vec_valid = None
+
+        alive = self._alive_mask_device()
+        masked = bool(p0.where) or bool(self.deleted)
+        nf_host = None
+        if nf is not None:
+            nfid, filt = nf
+            ncomm = self._number[nfid].committed
+            dense_plane = self._device.number_dense_plane(ncomm, cap)
+            if dense_plane is not None:
+                nvals, ndocs, nvalid = dense_plane, None, None
+                dsuf = "_dense"
+            else:
+                nvals, ndocs, nvalid = self._device.number_arrays(ncomm)
+                dsuf = ""
+            if filt.op == "eq":
+                kind = "eq" + dsuf
+                nf_host = np.asarray([filt.value, filt.value, 1.0, 1.0],
+                                     np.float32)
+            else:
+                kind = "range" + dsuf
+                lo_, hi_, lx_, hx_ = ncomm.filter_bounds(filt)
+                nf_host = np.asarray(
+                    [lo_, hi_, 1.0 if lx_ else 0.0, 1.0 if hx_ else 0.0],
+                    np.float32,
+                )
+        else:
+            kind = "none"
+            nvals = ndocs = nvalid = None
+
+        use_dense = dense_rows is not None
+        fusion = "minmax" if p0.fusion == HybridFusion.MINMAX else "rrf"
+        # memory chunks: each holds b * cap f32 scores per modality
+        chunk = 4
+        for bb in (256, 64, 16, 4):
+            if bb * cap <= self._BATCH_DENSE_SLOTS and bb * cap < 2**31:
+                chunk = bb
+                break
+        pending = []
+        for c0 in range(0, b_real, chunk):
+            rows_c = list(range(c0, min(c0 + chunk, b_real)))
+            b = len(rows_c)
+            int_parts: List[np.ndarray] = []
+            flt_parts: List[np.ndarray] = [
+                np.asarray([field_boost, gi_avgdl, gi_n], np.float32)
+            ]
+            if nf_host is not None:
+                flt_parts.append(nf_host)
+            nb = 1
+            if sfid is not None:
+                plan = bm25_ops.build_batch_plan_aligned(
+                    [row_plans[r] for r in rows_c])
+                nb = len(plan[0])
+                int_parts += list(plan)
+                if use_dense:
+                    w_mat = np.zeros((b, int(dense_rows.shape[0])), np.float32)
+                    for i, r in enumerate(rows_c):
+                        sel, w = row_sels[r]
+                        for s_row, s_w in zip(sel, w):
+                            w_mat[i, s_row] += s_w
+                    flt_parts.append(w_mat.reshape(-1))
+            if qdim:
+                flt_parts.append(qn[rows_c].reshape(-1))
+            ints = (np.concatenate(int_parts) if int_parts
+                    else np.zeros(1, np.int32))
+            out = hybrid_ops.hybrid_fused_topk_batch(
+                put(ints), put(np.concatenate(flt_parts)),
+                d_docs, d_tf, d_ni, d_plens,
+                dense_rows if use_dense else zf,
+                vecs, vec_docs, vec_valid, alive, nvals, ndocs, nvalid,
+                n_docs=cap, k=k, fusion=fusion, nf=kind, masked=masked,
+                mode=mode, n_blocks=nb, b=b, qdim=qdim, dense=use_dense,
+                vec_identity=(_vec_docs_identity(vf.committed)
+                              if vf is not None else False),
+            )
+            pending.append((rows_c, out))
+        # one host sync for every chunk's results
+        results: List[Optional[Tuple[List[Tuple[int, float]], int]]] = (
+            [None] * b_real
+        )
+        for rows_c, (vals_t, idx_t, counts_t) in pending:
+            vals, idx, counts = (_to_host(vals_t), _to_host(idx_t),
+                                 _to_host(counts_t))
+            for i, r in enumerate(rows_c):
+                p = params_list[r]
+                ranked = [
+                    (int(d), float(s))
+                    for d, s in zip(idx[i][: p.limit], vals[i][: p.limit])
+                    if s > 0.0
+                ]
+                results[r] = (ranked, int(counts[i]))
+        return results  # every slot filled: chunks partition the rows
 
     def search(
         self, params: SearchParams, ai_service

@@ -26,6 +26,7 @@ from ..oplog import (
 from ..types import (
     ApiKeyError,
     CollectionNotFound,
+    SearchModeKind,
     SearchParams,
     SearchResult,
     SearchResultHit,
@@ -33,6 +34,15 @@ from ..types import (
 from ..utils import ensure_dir, read_json, atomic_write_json
 from .collection_read import CollectionReader
 from .document_storage import DocumentStorage
+
+
+def dataclasses_to_key(v) -> str:
+    """Stable string form of a filter value for batch-compatibility keys."""
+    import dataclasses
+
+    if dataclasses.is_dataclass(v):
+        return repr(dataclasses.asdict(v))
+    return repr(v)
 
 
 class ReadSide:
@@ -64,10 +74,16 @@ class ReadSide:
         # called just before WAL truncation (Orama wires write_side.commit
         # so the write-side dump is never staler than the truncation point)
         self.wal_pre_truncate = None
+        self._batcher = None
         if self.gpu_cfg.query_batching:
-            # the micro-batcher (server/batcher.py + search_batch) is a
-            # later port slice
-            raise NotImplementedError("query_batching: a later port slice")
+            from ..server.batcher import MicroBatcher
+
+            self._batcher = MicroBatcher(
+                self._run_search_batch,
+                max_batch=self.gpu_cfg.batch_max,
+                max_wait_ms=self.gpu_cfg.batch_wait_ms,
+                submit_timeout_s=self.gpu_cfg.batch_submit_timeout_s,
+            )
         self.load()
 
     # -- op application (reference: read/mod.rs:181-249) ----------------------
@@ -177,6 +193,52 @@ class ReadSide:
             raise ApiKeyError("invalid read api key")
         return reader
 
+    def _batchable(self, params: SearchParams) -> bool:
+        return (
+            self._batcher is not None
+            and not params.facets
+            and params.properties is None
+            and bool(params.term.strip())
+            # raw-vector queries carry their own embedding, which the
+            # batched path (keyed and driven by term) cannot represent
+            and params.vector is None
+            # the batched vector scorer is the exact product; under an
+            # int8 index batching would change the scores
+            and (
+                params.mode == SearchModeKind.FULLTEXT
+                or self.gpu_cfg.vector_index == "exact"
+            )
+            # phrase queries do not batch: K4 costs the same per row
+            # either way, so they take the single-query path
+            and (
+                params.mode == SearchModeKind.VECTOR
+                or len(params.term.split()) == 1
+            )
+        )
+
+    def _batch_key(self, collection_id: str, params: SearchParams):
+        import json as _json
+
+        where_key = _json.dumps(
+            {k: dataclasses_to_key(v) for k, v in sorted(params.where.items())}
+        )
+        boost_key = _json.dumps(sorted(params.boost.items()))
+        # multi-word terms get phrase boosts and single-word terms must
+        # not: keep them in separate batches
+        phrase_hint = len(params.term.split()) > 1
+        return (
+            collection_id, params.mode.value, params.fusion.value,
+            where_key, boost_key, phrase_hint,
+        )
+
+    def _run_search_batch(self, key, payloads):
+        return self._reader(key[0]).search_batch(payloads, self.ai)
+
+    def close(self) -> None:
+        """Stop the micro-batcher's collector thread, if there is one."""
+        if self._batcher is not None:
+            self._batcher.stop()
+
     def search(
         self,
         collection_id: str,
@@ -194,11 +256,17 @@ class ReadSide:
         offset = params.offset
         if offset:
             # pagination: rank offset+limit, slice after (the shared
-            # kernels only know a single k)
+            # kernels and the batcher only know a single k)
             import dataclasses as _dc
 
             params = _dc.replace(params, limit=params.limit + offset, offset=0)
-        ranked, count, facets = reader.search(params, self.ai)
+        if self._batchable(params):
+            ranked, count = self._batcher.submit(
+                self._batch_key(collection_id, params), params
+            )
+            facets = None
+        else:
+            ranked, count, facets = reader.search(params, self.ai)
         if offset:
             ranked = ranked[offset:]
         storage = self.doc_storage[collection_id]

@@ -59,10 +59,11 @@ _F = ctypes.c_float
 # argument types of each library's entry points
 SIGNATURES: Dict[str, Dict[str, List]] = {
     "bm25_scan": {
-        # docs, tf, ni, lens, blk, lo, hi, then boost, avgdl and nfd as
-        # pointers to 0-d f32 on the card (or NULL) and as values (read
-        # where the pointer is NULL), scores, n_blocks, stream
-        "bm25_scan": [_P] * 10 + [_F] * 3 + [_P, _I, _P],
+        # docs, tf, ni, lens, blk, lo, hi, row_id (NULL for one row), then
+        # boost, avgdl and nfd as pointers to 0-d f32 on the card (or NULL)
+        # and as values (read where the pointer is NULL), scores, n_blocks,
+        # n_docs, stream
+        "bm25_scan": [_P] * 11 + [_F] * 3 + [_P, _I, _L, _P],
     },
     "knn_subblock_max": {
         # vecs, queries, bmax, bcnt, n, d, q, sub, n_valid, stream

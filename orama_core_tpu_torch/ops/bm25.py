@@ -7,6 +7,7 @@ verbatim; the device paths are torch, and two of them are the wrappers of
 hand-written Hopper kernels:
 
     K1  bm25_scores_blocked_aligned      csrc/bm25_scan.cu
+        bm25_scores_blocked_aligned_batch (the same kernel, row ids)
     K4  phrase_boost_docmajor_windowed   csrc/phrase_counts.cu
 
 A wrapper launches its kernel for CUDA tensors and runs its plain torch
@@ -23,6 +24,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils import bucket_pad
 from . import _cuda
 
 K1 = 1.2
@@ -104,6 +106,27 @@ def aligned_blocks_needed(p_len_list) -> int:
     return sum((ln + BLOCK - 1) // BLOCK + 1 for ln in p_len_list if ln > 0)
 
 
+def build_batch_plan_aligned(row_plans):
+    """Host: one batch's combined aligned plan, as the reference's batched
+    fused serving builds it: each row's real blocks in turn (row i's
+    posting spans ``row_plans[i] = (p_lo, p_len)``), then pad blocks
+    (hi_off 0, row 0) up to a PLAN_BUCKETS bucket. Returns
+    (block_idx, lo_off, hi_off, row_id), int32[nb] each."""
+    need = sum(aligned_blocks_needed(p_len) for _lo, p_len in row_plans)
+    nb = bucket_pad(max(need, 1), PLAN_BUCKETS)
+    plan = np.zeros((4, nb), np.int32)
+    at = 0
+    for i, (p_lo, p_len) in enumerate(row_plans):
+        bi, lo, hi = build_block_plan_aligned(
+            p_lo, p_len, aligned_blocks_needed(p_len))
+        # the bound over-counts: keep the row's real blocks
+        real = int(np.count_nonzero(hi))
+        plan[:3, at:at + real] = (bi[:real], lo[:real], hi[:real])
+        plan[3, at:at + real] = i
+        at += real
+    return tuple(plan)
+
+
 def idf_from_counts(ni, n_docs_with_field):
     """Host-side idf: ln1p((N - ni + 0.5) / (ni + 0.5))."""
     ni = np.asarray(ni, dtype=np.float64)
@@ -148,11 +171,13 @@ def bm25_scores_blocked(post_docs, post_tf, post_ni, post_lens, block_starts,
     return out.index_add_(0, docs.reshape(-1), contrib.reshape(-1))
 
 
-def bm25_scores_blocked_aligned_plain(post_docs, post_tf, post_ni, post_lens,
-                                      block_idx, lo_off, hi_off, field_boost,
-                                      avgdl, n_field_docs, n_docs: int,
-                                      n_blocks: int) -> torch.Tensor:
-    """Plain torch version of K1 (same contract as the wrapper)."""
+def bm25_blocked_contrib_aligned(post_docs, post_tf, post_ni, post_lens,
+                                 block_idx, lo_off, hi_off, field_boost,
+                                 avgdl, n_field_docs):
+    """The aligned block scan WITHOUT the per-doc reduction, the function
+    of the reference's ``bm25_blocked_contrib_pallas`` (K1's TPU kernel):
+    (contrib f32[nb, BLOCK], docs int64[nb, BLOCK]), contributions zero
+    outside each block's [lo, hi) window."""
     dev = post_docs.device
     j = torch.arange(BLOCK, device=dev)[None, :]
     idx = block_idx.long()[:, None] * BLOCK + j
@@ -161,9 +186,84 @@ def bm25_scores_blocked_aligned_plain(post_docs, post_tf, post_ni, post_lens,
         post_tf[idx], post_ni[idx], post_lens[idx], _f32(field_boost, dev),
         _f32(avgdl, dev), _f32(n_field_docs, dev),
     ) * valid.to(torch.float32)
-    out = torch.zeros(n_docs, dtype=torch.float32, device=dev)
-    return out.index_add_(0, post_docs[idx].reshape(-1).long(),
-                          contrib.reshape(-1))
+    return contrib, post_docs[idx].long()
+
+
+def bm25_scores_blocked_aligned_plain(post_docs, post_tf, post_ni, post_lens,
+                                      block_idx, lo_off, hi_off, field_boost,
+                                      avgdl, n_field_docs, n_docs: int,
+                                      n_blocks: int) -> torch.Tensor:
+    """Plain torch version of K1 (same contract as the wrapper)."""
+    contrib, docs = bm25_blocked_contrib_aligned(
+        post_docs, post_tf, post_ni, post_lens, block_idx, lo_off, hi_off,
+        field_boost, avgdl, n_field_docs,
+    )
+    out = torch.zeros(n_docs, dtype=torch.float32, device=post_docs.device)
+    return out.index_add_(0, docs.reshape(-1), contrib.reshape(-1))
+
+
+def bm25_scores_blocked_aligned_batch_plain(post_docs, post_tf, post_ni,
+                                            post_lens, block_idx, lo_off,
+                                            hi_off, row_id, field_boost,
+                                            avgdl, n_field_docs, n_docs: int,
+                                            n_blocks: int,
+                                            b: int) -> torch.Tensor:
+    """Plain torch version of K1 over a batch's combined plan (same
+    contract as ``bm25_scores_blocked_aligned_batch``): the reference's
+    ``bm25_blocked_contrib_pallas`` and a segment sum over
+    ``row_id * n_docs + doc``."""
+    contrib, docs = bm25_blocked_contrib_aligned(
+        post_docs, post_tf, post_ni, post_lens, block_idx, lo_off, hi_off,
+        field_boost, avgdl, n_field_docs,
+    )
+    seg = docs + row_id.long()[:, None] * n_docs
+    out = torch.zeros(b * n_docs, dtype=torch.float32, device=post_docs.device)
+    return out.index_add_(0, seg.reshape(-1), contrib.reshape(-1)).reshape(
+        b, n_docs)
+
+
+def _k1_check(post_docs, post_tf, post_ni, post_lens, plan, n_blocks):
+    """Raise unless K1 takes these posting columns and plan arrays."""
+    _cuda.require(post_docs, "post_docs", torch.int32, 1)
+    for name, t in (("post_tf", post_tf), ("post_ni", post_ni),
+                    ("post_lens", post_lens)):
+        _cuda.require(t, name, torch.float32, 1)
+        if t.shape != post_docs.shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)} != post_docs")
+    if post_docs.shape[0] % BLOCK:
+        raise ValueError("pad posting arrays to a BLOCK multiple")
+    for name, t in (("post_docs", post_docs), ("post_tf", post_tf),
+                    ("post_ni", post_ni), ("post_lens", post_lens)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernel's 16-byte loads need a "
+                             "16-byte aligned tensor")
+    for name, t in plan:
+        _cuda.require(t, name, torch.int32, 1)
+        if t.shape[0] != n_blocks:
+            raise ValueError(f"{name}: expected {n_blocks} plan blocks")
+
+
+def _k1_launch(post_docs, post_tf, post_ni, post_lens, block_idx, lo_off,
+               hi_off, row_id, scalars, n_docs: int, n_blocks: int,
+               rows: int) -> torch.Tensor:
+    """Fill f32[rows * n_docs] and launch K1 right behind the fill."""
+    dev = post_docs.device
+    scalars = [_cuda.scalar_arg(x, dev) for x in scalars]
+    lib = _cuda.lib("bm25_scan")
+    # the fill must be the launch right before the kernel's: the kernel
+    # overlaps its loads with it (csrc/bm25_scan.cu)
+    scores = torch.zeros(rows * n_docs, dtype=torch.float32, device=dev)
+    if n_docs == 0:
+        return scores
+    _cuda.LAUNCHES["bm25_scan"] += 1
+    _cuda.check(lib.bm25_scan(
+        _cuda.ptr(post_docs), _cuda.ptr(post_tf), _cuda.ptr(post_ni),
+        _cuda.ptr(post_lens), _cuda.ptr(block_idx), _cuda.ptr(lo_off),
+        _cuda.ptr(hi_off), None if row_id is None else _cuda.ptr(row_id),
+        *[p for _t, p, _v in scalars], *[v for _t, _p, v in scalars],
+        _cuda.ptr(scores), int(n_blocks), int(n_docs), _cuda.stream(),
+    ), "bm25_scan")
+    return scores
 
 
 def bm25_scores_blocked_aligned(post_docs, post_tf, post_ni, post_lens,
@@ -187,42 +287,38 @@ def bm25_scores_blocked_aligned(post_docs, post_tf, post_ni, post_lens,
             post_docs, post_tf, post_ni, post_lens, block_idx, lo_off,
             hi_off, field_boost, avgdl, n_field_docs, n_docs, n_blocks,
         )
-    dev = post_docs.device
-    _cuda.require(post_docs, "post_docs", torch.int32, 1)
-    for name, t in (("post_tf", post_tf), ("post_ni", post_ni),
-                    ("post_lens", post_lens)):
-        _cuda.require(t, name, torch.float32, 1)
-        if t.shape != post_docs.shape:
-            raise ValueError(f"{name}: shape {tuple(t.shape)} != post_docs")
-    if post_docs.shape[0] % BLOCK:
-        raise ValueError("pad posting arrays to a BLOCK multiple")
-    for name, t in (("post_docs", post_docs), ("post_tf", post_tf),
-                    ("post_ni", post_ni), ("post_lens", post_lens)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: the kernel's 16-byte loads need a "
-                             "16-byte aligned tensor")
-    for name, t in (("block_idx", block_idx), ("lo_off", lo_off),
-                    ("hi_off", hi_off)):
-        _cuda.require(t, name, torch.int32, 1)
-        if t.shape[0] != n_blocks:
-            raise ValueError(f"{name}: expected {n_blocks} plan blocks")
-    scalars = [_cuda.scalar_arg(x, dev) for x in
-               (field_boost, avgdl, n_field_docs)]
-    lib = _cuda.lib("bm25_scan")
-    # the fill must be the launch right before the kernel's: the kernel
-    # overlaps its loads with it (csrc/bm25_scan.cu)
-    scores = torch.zeros(n_docs, dtype=torch.float32, device=dev)
-    if n_docs == 0:
-        return scores
-    _cuda.LAUNCHES["bm25_scan"] += 1
-    _cuda.check(lib.bm25_scan(
-        _cuda.ptr(post_docs), _cuda.ptr(post_tf), _cuda.ptr(post_ni),
-        _cuda.ptr(post_lens), _cuda.ptr(block_idx), _cuda.ptr(lo_off),
-        _cuda.ptr(hi_off), *[p for _t, p, _v in scalars],
-        *[v for _t, _p, v in scalars], _cuda.ptr(scores), int(n_blocks),
-        _cuda.stream(),
-    ), "bm25_scan")
-    return scores
+    _k1_check(post_docs, post_tf, post_ni, post_lens,
+              (("block_idx", block_idx), ("lo_off", lo_off),
+               ("hi_off", hi_off)), n_blocks)
+    return _k1_launch(post_docs, post_tf, post_ni, post_lens, block_idx,
+                      lo_off, hi_off, None, (field_boost, avgdl, n_field_docs),
+                      n_docs, n_blocks, 1)
+
+
+def bm25_scores_blocked_aligned_batch(post_docs, post_tf, post_ni, post_lens,
+                                      block_idx, lo_off, hi_off, row_id,
+                                      field_boost, avgdl, n_field_docs,
+                                      n_docs: int, n_blocks: int,
+                                      b: int) -> torch.Tensor:
+    """K1 over a batch's combined aligned plan -> f32[b, n_docs]: plan
+    block i scores into row ``row_id[i]`` (int32[n_blocks]). The plan is
+    the reference's combined plan (``_search_batch_hybrid_fused``): every
+    row's real blocks first, then the pad blocks (hi == 0, row 0), and the
+    kernel stops at the first pad. One launch and one fill of b * n_docs
+    floats for the whole batch."""
+    if not post_docs.is_cuda:
+        return bm25_scores_blocked_aligned_batch_plain(
+            post_docs, post_tf, post_ni, post_lens, block_idx, lo_off,
+            hi_off, row_id, field_boost, avgdl, n_field_docs, n_docs,
+            n_blocks, b,
+        )
+    _k1_check(post_docs, post_tf, post_ni, post_lens,
+              (("block_idx", block_idx), ("lo_off", lo_off),
+               ("hi_off", hi_off), ("row_id", row_id)), n_blocks)
+    return _k1_launch(post_docs, post_tf, post_ni, post_lens, block_idx,
+                      lo_off, hi_off, row_id,
+                      (field_boost, avgdl, n_field_docs), n_docs, n_blocks,
+                      b).reshape(b, n_docs)
 
 
 def bm25_scores_from_spans(term_starts, post_docs, post_tf, post_ni,
@@ -288,6 +384,29 @@ def bm25_scores_from_spans(term_starts, post_docs, post_tf, post_ni,
         contrib = contrib * filter_mask[docs]
     out = torch.zeros(n_docs, dtype=torch.float32, device=dev)
     return out.index_add_(0, docs, contrib)
+
+
+def bm25_scores_from_spans_batch(term_starts, post_docs, post_tf, post_ni,
+                                 post_lens, pos_starts, positions, spans_b,
+                                 field_boost, filter_mask, avgdl,
+                                 n_field_docs, n_docs: int, g_budget: int,
+                                 pp_budget: int, phrase: bool,
+                                 masked: bool = True,
+                                 phrase_spans_b=None) -> torch.Tensor:
+    """[B, n_docs]: ``bm25_scores_from_spans`` for each row of ``spans_b``
+    int32[B, MAXTOK, 2] (and of ``phrase_spans_b``, the surface-only spans
+    of phrase rows), the index arrays shared by the rows. The reference
+    vmaps the rows; here they run one after another."""
+    return torch.stack([
+        bm25_scores_from_spans(
+            term_starts, post_docs, post_tf, post_ni, post_lens, pos_starts,
+            positions, spans_b[r], field_boost, filter_mask, avgdl,
+            n_field_docs, n_docs=n_docs, g_budget=g_budget,
+            pp_budget=pp_budget, phrase=phrase, masked=masked,
+            phrase_spans=None if phrase_spans_b is None else phrase_spans_b[r],
+        )
+        for r in range(spans_b.shape[0])
+    ])
 
 
 def phrase_boost_by_doc(pos_docs, pos_vals, valid, user_boost,

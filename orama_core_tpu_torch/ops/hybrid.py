@@ -11,8 +11,9 @@ collection.rs:730-772). The whole query
 runs as one sequence of device launches with no host sync before the
 results are read. The staging layout is the reference's (two small
 buffers, one int32 and one float32, unpacked at static offsets), so the
-engine's host packing ports line for line. The ANN vmodes (ivf, pq,
-ivf_pq) and the batched program are later slices.
+engine's host packing ports line for line. ``hybrid_fused_topk_batch``
+serves a micro-batch of rows in the same way. The ANN vmodes (ivf, pq,
+ivf_pq) are a later slice.
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ from . import facets as facet_ops
 from . import filters as filter_ops
 from . import quant as quant_ops
 from . import vector as vector_ops
-from .fusion import dense_topk, minmax_fuse, rrf_candidate_count, rrf_fuse_topk
+from .fusion import (dense_topk, minmax_fuse, rrf_candidate_count,
+                     rrf_fuse_topk, rrf_fuse_topk_batch)
 
 
 def _field_fulltext_score(fargs, fstat, *, n_docs: int, bm25_pallas: bool):
@@ -255,3 +257,96 @@ def hybrid_fused_topk_mf(
     count = torch.sum(fused > 0).to(torch.int32)
     return (vals, idx.to(torch.int32), count,
             facet_counts(matched.to(torch.float32)))
+
+
+def hybrid_fused_topk_batch(
+    ints, flts, post_docs, post_tf, post_ni, post_lens, dense_rows, vecs,
+    vec_docs, vec_valid, alive_mask, nf_vals, nf_docs, nf_valid, *,
+    n_docs: int, k: int, fusion: str, nf: str, masked: bool, mode: str,
+    n_blocks: int, b: int, qdim: int, dense: bool, vec_identity: bool = False,
+):
+    """Batched serving of ``b`` non-phrase rows that share one filter, with
+    the single-query program's primitives (the reference's
+    ``hybrid_fused_topk_batch``, aligned plan only):
+
+        number filter -> K1 over ONE combined aligned plan whose blocks
+        carry their row id (scores [b, n_docs] from one launch) + the
+        Zipf-head rows as a [b, H] @ [H, n_docs] weight product -> one
+        corpus product for the b query vectors -> per-row RRF or min-max
+        fusion -> top-k + counts
+
+    Staging (the reference's, two small uploads):
+      ints: [block_idx, lo_off, hi_off, row_id] nb each (mode != vector)
+      flts: [boost, avgdl, nfd], [nf lo, hi, lx, hx] (nf != "none"),
+            [W b*H row-major] (dense), [queries b*qdim] (mode != fulltext)
+    ``nf`` is "none", "range", "eq", "range_dense" or "eq_dense"; dummies
+    stand in for the arrays a mode does not read. Returns (vals f32[b, k],
+    ids int32[b, k], counts int32[b])."""
+    ic = [0]
+    fc = [0]
+
+    def take_i(n):
+        v = ints[ic[0]: ic[0] + n]
+        ic[0] += n
+        return v
+
+    def take_f(n):
+        v = flts[fc[0]: fc[0] + n]
+        fc[0] += n
+        return v
+
+    scalars = take_f(3)
+    boost, avgdl, nfd = scalars[0], scalars[1], scalars[2]
+    if nf == "none":
+        mask = alive_mask
+    else:
+        fp = take_f(4)
+        if nf == "range_dense":
+            m = filter_ops.number_range_mask_dense(
+                nf_vals, fp[0], fp[1], fp[2] > 0, fp[3] > 0)
+        elif nf == "eq_dense":
+            m = filter_ops.number_eq_mask_dense(nf_vals, fp[0])
+        elif nf == "range":
+            m = filter_ops.number_range_mask(
+                nf_vals, nf_docs, nf_valid, fp[0], fp[1], fp[2] > 0,
+                fp[3] > 0, n_docs=n_docs)
+        elif nf == "eq":
+            m = filter_ops.number_eq_mask(nf_vals, nf_docs, nf_valid, fp[0],
+                                          n_docs=n_docs)
+        else:
+            raise ValueError(f"nf={nf!r}")
+        mask = filter_ops.combine_masks(alive_mask, m)
+    if mode != "vector":
+        ba_idx, ba_lo, ba_hi, row_id = (take_i(n_blocks) for _ in range(4))
+        ft = bm25_ops.bm25_scores_blocked_aligned_batch(
+            post_docs, post_tf, post_ni, post_lens, ba_idx, ba_lo, ba_hi,
+            row_id, boost, avgdl, nfd, n_docs=n_docs, n_blocks=n_blocks, b=b,
+        )
+        if dense:
+            h = dense_rows.shape[0]
+            w = take_f(b * h).reshape(b, h)
+            ft = ft + boost * (w @ dense_rows)
+        if masked:
+            ft = ft * mask[None, :]
+    if mode != "fulltext":
+        queries = take_f(b * qdim).reshape(b, qdim)
+        vec = vector_ops.brute_force_scores_batch(
+            vecs, vec_docs, vec_valid, queries, mask, n_docs=n_docs,
+            identity=vec_identity,
+        )
+    if mode == "fulltext":
+        fused = ft
+    elif mode == "vector":
+        fused = vec
+    else:
+        if fusion == "rrf":
+            vals, idx, counts = rrf_fuse_topk_batch(
+                ft, vec, k, rrf_candidate_count(k))
+            return vals, idx.to(torch.int32), counts
+        # min-max per row: each row divides by its own max
+        m = torch.clamp(torch.maximum(ft.amax(dim=1), vec.amax(dim=1)),
+                        min=1e-9)
+        fused = (ft + vec) / m[:, None]
+    vals, idx = dense_topk(fused, k)
+    counts = torch.sum(fused > 0, dim=1).to(torch.int32)
+    return vals, idx.to(torch.int32), counts

@@ -126,20 +126,34 @@ def rescore_subblocks_plain(vecs: torch.Tensor, queries: torch.Tensor,
     return torch.einsum("gsd,gd->gs", slab, q)
 
 
+# K3's ring holds at least two stages of one query row and one corpus row
+# at this width (csrc/knn_rescore.cu)
+_RESCORE_MAX_D = 28672
+
+
 def rescore_subblocks(vecs: torch.Tensor, queries: torch.Tensor,
                       sub_ids_flat: torch.Tensor, k: int, sub: int):
-    """K3: exact rescore of the selected sub-blocks -> f32[nsel, sub]."""
+    """K3: exact rescore of the selected sub-blocks -> f32[nsel, sub].
+    Persistent blocks stream the selected slabs through a ring of bulk
+    async copies (16-byte rows and a 16-byte aligned corpus), or of
+    4-byte copies for any other even width."""
     if not vecs.is_cuda:
         return rescore_subblocks_plain(vecs, queries, sub_ids_flat, k, sub)
     _cuda.require(vecs, "vecs", torch.bfloat16, 2)
-    queries = queries.to(torch.bfloat16).contiguous()
+    queries = _aligned(queries.to(torch.bfloat16).contiguous())
     ids = sub_ids_flat.to(torch.int32).contiguous()
     _cuda.require(ids, "sub_ids", torch.int32, 1)
     n, d = vecs.shape
     qn = queries.shape[0]
     nsel = ids.shape[0]
-    if d % 2:
-        raise ValueError("K3 needs an even dimension")
+    if d % 2 or d > _RESCORE_MAX_D:
+        raise ValueError(f"K3 needs an even dimension <= {_RESCORE_MAX_D} "
+                         f"(D={d})")
+    if queries.shape[1] != d:
+        raise ValueError("queries and vecs differ in dimension")
+    if vecs.data_ptr() % 4:
+        raise ValueError("K3 copies rows in 4-byte words at least: vecs "
+                         "must start 4-byte aligned")
     if nsel > qn * k:
         raise ValueError("more selected slots than queries * k")
     out = torch.empty(nsel, sub, dtype=torch.float32, device=vecs.device)

@@ -16,9 +16,11 @@ def topk_stable(scores: torch.Tensor, k: int):
     sorted descending, ties toward the lower index (``lax.top_k``'s rule).
 
     One ``torch.topk`` finds the k-th value t; the winners are every entry
-    above t plus the lowest-indexed entries equal to t (picked by a second
-    topk on an integer key), then one stable sort of those k orders them.
-    Linear in n, like ``torch.topk``, and free of host syncs."""
+    above t plus the lowest-indexed entries equal to t, picked by a second
+    topk on a unique integer key (entries above t first, then entries
+    equal to t, lower index first within each), then one stable sort of
+    those k orders them. Linear in n, like ``torch.topk``, and free of
+    host syncs."""
     n = scores.shape[-1]
     k = min(k, n)
     if k <= 0:
@@ -30,13 +32,13 @@ def topk_stable(scores: torch.Tensor, k: int):
         return vals, idx
     kth = torch.topk(scores, k, dim=-1, sorted=True).values[..., -1:]
     above = scores > kth
-    tied = scores == kth
-    room = k - above.sum(dim=-1, keepdim=True)
-    take = above | (tied & (torch.cumsum(tied.to(torch.int32), dim=-1) <= room))
-    # exactly k winners per row: a key that is positive only for winners
-    # and larger for lower indices picks them without a host sync
-    rank = n - torch.arange(n, device=scores.device)
-    idx = torch.topk(take.to(torch.int64) * rank, k, dim=-1).indices
+    # fewer than k entries lie above t and at least k at or above it, so
+    # the k largest keys are every entry above t and the first entries
+    # equal to t; the key is 0 below t
+    kt = torch.int32 if 3 * n < 2**31 else torch.int64  # fewer radix passes
+    rank = n - torch.arange(n, device=scores.device, dtype=kt)
+    key = (above | (scores == kth)).to(kt) * rank + above.to(kt) * (2 * n)
+    idx = torch.topk(key, k, dim=-1).indices
     vals = torch.gather(scores, -1, idx)
     vals, order = torch.sort(vals, dim=-1, descending=True, stable=True)
     return vals, torch.gather(idx, -1, order)

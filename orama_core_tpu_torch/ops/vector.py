@@ -62,3 +62,42 @@ def selective_scores(vecs, rows, row_docs, row_valid, query,
     sims = torch.clamp(sims, min=0.0) * row_valid
     out = torch.zeros(n_docs, dtype=torch.float32, device=vecs.device)
     return out.index_add_(0, row_docs.long(), sims)
+
+
+def brute_force_scores_batch(vecs, vec_docs, vec_valid, queries, filter_mask,
+                             n_docs: int, identity: bool = False
+                             ) -> torch.Tensor:
+    """float32[B, n_docs], the micro-batched serving path: one product for
+    the whole query batch ``queries`` [B, D] (the corpus read once for B
+    queries). With ``identity`` the per-row scatter is a pad/slice;
+    otherwise each row is summed per doc by its own ``index_add_``."""
+    sims = torch.clamp(sims_f32(vecs, queries), min=0.0) * vec_valid[:, None]
+    sims = sims.T                                            # [B, P]
+    p = sims.shape[1]
+    if identity:
+        if p >= n_docs:
+            scores = sims[:, :n_docs]
+        else:
+            scores = torch.nn.functional.pad(sims, (0, n_docs - p))
+    else:
+        docs = vec_docs.long()
+        scores = torch.zeros(sims.shape[0], n_docs, dtype=torch.float32,
+                             device=vecs.device)
+        for row in range(sims.shape[0]):
+            scores[row].index_add_(0, docs, sims[row])
+    return scores * filter_mask[None, :]
+
+
+def selective_scores_batch(vecs, rows, row_docs, row_valid, queries,
+                           n_docs: int) -> torch.Tensor:
+    """[B, n_docs] batch variant of selective_scores: one candidate set
+    shared by the batch (the micro-batcher keys on the filter)."""
+    vr = vecs[rows.long()]
+    sims = torch.clamp(sims_f32(vr, queries), min=0.0) * row_valid[:, None]
+    sims = sims.T                                            # [B, R]
+    docs = row_docs.long()
+    out = torch.zeros(sims.shape[0], n_docs, dtype=torch.float32,
+                      device=vecs.device)
+    for row in range(sims.shape[0]):
+        out[row].index_add_(0, docs, sims[row])
+    return out

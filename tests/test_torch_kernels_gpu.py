@@ -18,7 +18,11 @@ The K4 cases probe its doc ownership (empty docs at the start, inside
 and at the end of the stream, one doc longer than many blocks' shares,
 fewer positions than blocks, no positions at all) with 4, 16 or 32
 spans; the K1 cases its plan walk (edges inside plan blocks, a single
-posting, one block, repeated docs, a padded bucket, pads only)."""
+posting, one block, repeated docs, a padded bucket, pads only) and a
+batch's combined plan with row ids (one row, empty rows, pads only); the
+K3 cases its slab ring (one, odd and all of Q x k slots for Q up to 256,
+the corpus's last sub-block, sub = 8, 16, 32, widths whose rows are not
+16 bytes, half-slab pieces at D = 2048, an unaligned corpus view)."""
 
 import numpy as np
 import pytest
@@ -320,6 +324,113 @@ def test_k1_walks_plan_chunks_on_card(plan):
             assert not got.any()
         else:
             assert int((got > 0).sum()) >= min(sum(p_len), 100)
+
+
+def _k1_batch_plan(rows):
+    """The engine's combined aligned plan of a batch as int32 tensors on
+    the card, and its length."""
+    from orama_core_tpu_torch.ops import bm25
+
+    plan = bm25.build_batch_plan_aligned(rows)
+    return [torch.tensor(a, device="cuda") for a in plan], len(plan[0])
+
+
+K1_BATCHES = {  # name: rows of (p_lo, p_len); empty rows hold no blocks
+    "one_row": [([1500, 3000], [300, 2000])],
+    "rows": [([7777], [1]), ([], []), ([0, 600_000], [5000, 5000]),
+             ([10_000], [40_000]), ([], []), ([2048], [1024])] * 3,
+    "pad_rows_around_one": [([], []), ([], []), ([123_456], [9_999]),
+                            ([], [])],
+    "pads_only": [([], [])] * 3,
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(K1_BATCHES))
+def test_k1_row_ids_on_card(case):
+    """K1 over a batch's combined plan (row ids) against its plain twin
+    within rtol 1e-5, atol 1e-6, and each row against the single-row
+    kernel on its own plan: one row alone, 18 rows with empty rows among
+    them, one real row among empty ones, empty rows only (zeros)."""
+    _need_card()
+    from orama_core_tpu_torch.ops import bm25
+
+    rng = np.random.default_rng(43)
+    cols = _k1_corpus(rng)
+    rows = K1_BATCHES[case]
+    plan, nb = _k1_batch_plan(rows)
+    b = len(rows)
+    scal = (1.3, 42.0, 50_000.0)
+    got = bm25.bm25_scores_blocked_aligned_batch(
+        *cols, *plan, *scal, n_docs=50_000, n_blocks=nb, b=b)
+    want = bm25.bm25_scores_blocked_aligned_batch_plain(
+        *cols, *plan, *scal, n_docs=50_000, n_blocks=nb, b=b)
+    torch.cuda.synchronize()
+    assert got.shape == (b, 50_000)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    for r, (p_lo, p_len) in enumerate(rows):
+        if not p_len:
+            assert not got[r].any()
+            continue
+        one, one_nb = _k1_batch_plan([(p_lo, p_len)])
+        single = bm25.bm25_scores_blocked_aligned(
+            *cols, *one[:3], *scal, n_docs=50_000, n_blocks=one_nb)
+        torch.testing.assert_close(got[r], single, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sub", [8, 16, 32])
+@pytest.mark.parametrize("d", [130, 384, 768, 1024, 2048])
+def test_k3_rescore_edges_on_card(d, sub):
+    """K3 against its plain version within 1e-4 (f32 sums of exact bf16
+    products in another order) at Q = 1, 3, 64 and 256 with k = 16: one
+    slot, an odd slot count and every slot, the corpus's last sub-block
+    always among them. D = 130 takes the 4-byte copies (rows not 16-byte
+    wide); D = 2048 at sub = 32 streams half-slabs (a whole slab and its
+    query leave no room for two stages)."""
+    _need_card()
+    rng = np.random.default_rng(d + sub)
+    nsub, k = 1024, 16
+    v = _bf16(rng, (nsub * sub, d), 1.0 / np.sqrt(d))
+    for qn in (1, 3, 64, 256):
+        q = _bf16(rng, (qn, d))
+        for nsel in (1, qn * k - 3 if qn * k > 3 else 1, qn * k):
+            ids = torch.tensor(rng.integers(0, nsub, nsel), dtype=torch.int32,
+                               device="cuda")
+            ids[-1] = nsub - 1
+            got = port.rescore_subblocks(v, q, ids, k, sub)
+            want = port.rescore_subblocks_plain(v, q, ids, k, sub)
+            torch.cuda.synchronize()
+            assert got.shape == (nsel, sub)
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_k3_takes_unaligned_rows_and_raises_on_what_it_does_not_take():
+    """A corpus view that starts 4 but not 16 bytes aligned takes the
+    4-byte copies, with the same results; odd or too wide dimensions, and
+    queries of another width, raise."""
+    _need_card()
+    rng = np.random.default_rng(8)
+    d, sub, k = 384, 32, 16
+    flat = _bf16(rng, (4096 * d + 2,), 1.0 / np.sqrt(d))
+    v = flat[2:].view(4096, d)
+    assert v.data_ptr() % 16 and not v.data_ptr() % 4
+    q = _bf16(rng, (5, d))
+    ids = torch.tensor(rng.integers(0, 4096 // sub, 5 * k), dtype=torch.int32,
+                       device="cuda")
+    torch.testing.assert_close(port.rescore_subblocks(v, q, ids, k, sub),
+                               port.rescore_subblocks_plain(v, q, ids, k, sub),
+                               rtol=0, atol=1e-4)
+    with pytest.raises(ValueError):
+        port.rescore_subblocks(_bf16(rng, (64, 7)), _bf16(rng, (1, 7)),
+                               ids[:1], 1, 8)
+    with pytest.raises(ValueError):
+        port.rescore_subblocks(_bf16(rng, (32, 30_000)),
+                               _bf16(rng, (1, 30_000)), ids[:1] * 0, 1, 8)
+    with pytest.raises(ValueError):
+        port.rescore_subblocks(v.contiguous(), q[:, :256].contiguous(), ids,
+                               k, sub)
 
 
 @pytest.mark.gpu
