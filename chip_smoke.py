@@ -37,11 +37,29 @@ all started together), then runs, failing at the first phase that fails:
    before and read after each mode; one query per mode is held against
    the same collection served on the CPU;
 5. the normal entry point: ``build_orama`` on ``cuda`` ingests documents
-   and commits, three times (5,000 short documents with the exact index,
-   the same with the int8 index, and 2,600 documents longer than the
-   model's 512-token budget, whose chunk rows take K6), and every search
-   mode is held against the same data directory loaded by
-   ``build_orama(device="cpu")``.
+   and commits, four times (5,000 short documents with the exact index,
+   the same with the int8 index, 2,600 documents longer than the model's
+   512-token budget, whose chunk rows take K6, and the 5,000 short
+   documents with ``vector_index="ivf_pq"`` and ``ivf_threshold`` lowered
+   to 1,000, so that commit trains IVF lists, residual PQ codes and the
+   tuned nprobe and expand on the card), and every search mode is held
+   against the same data directory loaded by ``build_orama(device="cpu")``.
+
+Before phase 5, the ANN phase (one ``{"ann": ...}`` line): the 1M
+collection's text and ``price`` with its vectors replaced by
+``benchmarks/ann_10m_bench.py``'s clustered corpus (2,000 unit modes,
+noise of norm ~0.25, L2-normalised rows, made on the card from a seed),
+served with ``vector_index`` = ``ivf``, ``pq`` and ``ivf_pq`` in turn. For
+each: the build on the card by the calls ``commit`` makes (seconds,
+clusters, list cap, tuned nprobe and expand, GiB of the ANN structures),
+recall@10 of 64 near-duplicate queries against brute force over the same
+bf16 rows (at least 0.95 for ``ivf`` and ``ivf_pq``; ``pq``'s is
+recorded), 32 queries each of unfiltered vector, hybrid RRF (which must
+launch K1) and filtered + faceted vector through ``search`` with their
+p50 (and, with ``--profile``, device ms and idle share), one query per
+mode held against a CPU reader of the same trained arrays (equal hit
+ids), and the device ms of one query's ANN search (at 8 and 20 timed
+calls; with ``--profile``, its kernel count) and of its ADC scan.
 
 Phase 3 also checks and times K3 at 128, 1,024 and 4,096 selected slots
 (Q = 8, 64, 256 at k = 16; one ``{"k3_shapes": ...}`` line) and K1 over
@@ -1393,55 +1411,282 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def phase_profile(readers, rng, n_queries=16):
-    """Optional (``--profile``): per mode, the device's busy share of the
-    wall time and the ops that take the most device and host time, from
-    torch.profiler over a steady window of queries. ``readers``:
-    collection name -> card reader."""
+def profile_window(reader, ai, params) -> dict:
+    """Device busy share of the wall time and the ops that take the most
+    device and host time, from torch.profiler over ``params`` served back
+    to back by ``reader.search`` (after two first-use calls)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    for p in params[:2]:
+        reader.search(p, ai)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for p in params:
+            reader.search(p, ai)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    evts = prof.key_averages()
+    busy_us = sum(_device_us(e) for e in evts)
+    by_name = {}
+    for e in evts:
+        if _device_us(e) > 0:
+            by_name[e.key[:60]] = by_name.get(e.key[:60], 0.0) + _device_us(e)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    # host side: the torch ops whose own CPU time is largest
+    host = sorted(((e.key[:60], e.self_cpu_time_total) for e in evts
+                   if _device_us(e) == 0), key=lambda kv: -kv[1])[:6]
+    n = len(params)
+    return {
+        "queries": n,
+        "wall_ms_per_query": wall_us / n / 1e3,
+        "device_ms_per_query": busy_us / n / 1e3,
+        "device_idle_share": (1.0 - busy_us / wall_us) if busy_us else None,
+        "top_device_ms_per_query": {
+            name: us / n / 1e3 for name, us in top
+        },
+        "top_host_self_ms_per_query": {
+            name: us / n / 1e3 for name, us in host
+        },
+    }
+
+
+def phase_profile(readers, rng, n_queries=16):
+    """Optional (``--profile``): per mode, ``profile_window`` over a steady
+    window of queries. ``readers``: collection name -> card reader."""
     from orama_core_tpu_torch.models.ai_service import AIService
     from orama_core_tpu_torch.types import SearchParams
 
     ai = AIService()
     for mode, (coll, kind, n_words, extra) in MODES.items():
-        reader = readers[coll]
         params = [SearchParams.from_json(
             dict(term=zipf_term(rng, n_words), mode=kind, **extra))
             for _ in range(n_queries)]
-        for p in params[:2]:
-            reader.search(p, ai)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for p in params:
-                reader.search(p, ai)
+        print(json.dumps(dict({"profile": mode},
+                              **profile_window(readers[coll], ai, params))),
+              flush=True)
+
+
+# -- the ANN indexes --------------------------------------------------------
+
+ANN_MODES = ("ivf", "pq", "ivf_pq")
+ANN_QUERIES = {  # name: (search mode, extra params, raw query vectors)
+    "vector": ("vector", {}, True),
+    "hybrid_rrf": ("hybrid", {}, False),
+    "vector_filtered": ("vector", {
+        "where": {"price": {"between": [20, 60]}},
+        "facets": {"price": {"ranges": [{"from": 0, "to": 25},
+                                        {"from": 25, "to": 50}]}},
+    }, True),
+}
+ANN_EXPECT = {"hybrid_rrf": ("bm25_scan",)}  # kernels a query mode launches
+
+
+def clustered_corpus(n, d, n_modes=2000, n_queries=64, seed=1,
+                     device="cuda"):
+    """``benchmarks/ann_10m_bench.py``'s corpus and queries, made on the
+    card from a seed: ``n_modes`` unit modes, each row a mode plus noise
+    of norm ~0.25, L2-normalised; queries are corpus rows plus noise of
+    norm ~0.05 (near-duplicate retrieval), L2-normalised. Returns host f32
+    (rows [n, d], queries [n_queries, d])."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    modes = torch.randn(n_modes, d, generator=g, device=device)
+    modes /= modes.norm(dim=1, keepdim=True)
+    which = torch.randint(0, n_modes, (n,), generator=g, device=device)
+    v = modes[which] + (0.25 / d ** 0.5) * torch.randn(
+        n, d, generator=g, device=device)
+    v /= v.norm(dim=1, keepdim=True)
+    qi = torch.randint(0, n, (n_queries,), generator=g, device=device)
+    q = v[qi] + (0.05 / d ** 0.5) * torch.randn(
+        n_queries, d, generator=g, device=device)
+    q /= q.norm(dim=1, keepdim=True)
+    return v.cpu().numpy(), q.cpu().numpy()
+
+
+def ann_arrays(arrays, vecs, committed=None):
+    """``arrays`` (the 1M collection: text, price) with its vectors replaced
+    by ``vecs``, or by the arrays of a trained ``committed`` index."""
+    from orama_core_tpu_torch.index import CommittedVectorIndex
+
+    if committed is None:
+        committed = CommittedVectorIndex(
+            dimension=vecs.shape[1], vecs=vecs,
+            vec_docs=np.arange(len(vecs), dtype=np.int32))
+    return dict(arrays, collection_id="smoke_ann",
+                arrays=dict(arrays["arrays"],
+                            **{"vector-1": committed.to_arrays()}))
+
+
+def ann_timings(reader, q, iters=8, profile=False):
+    """Device ms of one query's ANN search at the engine's operands, and
+    of its ADC scan alone (the candidates' LUT sums; PQ: over every row).
+    An IVF-PQ search launches ~100 kernels: ``iters`` stays small enough
+    that the timed calls fit the card's launch queue, or the host's
+    launch rate is timed instead of the device (``search_ms_20_calls``
+    shows it). With ``profile``, the kernels one search runs and their
+    device ms, from torch.profiler over 4 searches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as trace
+
+    from orama_core_tpu_torch.ops import ivf as ivf_ops
+    from orama_core_tpu_torch.ops import pq as pq_ops
+    from orama_core_tpu_torch.ops.hybrid import ann_vector_scores
+
+    c = reader._vector[1].committed
+    vmode, stat, ann, _ = reader._fused_vector_args(c, 10)
+    qd = torch.as_tensor(q, device=reader.device)
+    def search():
+        return ann_vector_scores(vmode, stat, ann, qd, n_docs=reader.capacity)
+
+    out = {"search_ms": time_ms(search, iters),
+           "search_ms_20_calls": time_ms(search, 20)}
+    if profile:
+        with trace(activities=[ProfilerActivity.CPU,
+                               ProfilerActivity.CUDA]) as prof:
+            for _ in range(4):
+                search()
             torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        evts = prof.key_averages()
-        busy_us = sum(_device_us(e) for e in evts)
-        by_name = {}
-        for e in evts:
-            if _device_us(e) > 0:
-                by_name[e.key[:60]] = by_name.get(e.key[:60], 0.0) + _device_us(e)
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-        # host side: the torch ops whose own CPU time is largest
-        host = sorted(((e.key[:60], e.self_cpu_time_total) for e in evts
-                       if _device_us(e) == 0), key=lambda kv: -kv[1])[:6]
-        print(json.dumps({
-            "profile": mode, "queries": n_queries,
-            "wall_ms_per_query": wall_us / n_queries / 1e3,
-            "device_ms_per_query": busy_us / n_queries / 1e3,
-            "device_idle_share": (1.0 - busy_us / wall_us) if busy_us else None,
-            "top_device_ms_per_query": {
-                name: us / n_queries / 1e3 for name, us in top
-            },
-            "top_host_self_ms_per_query": {
-                name: us / n_queries / 1e3 for name, us in host
-            },
-        }), flush=True)
+        evts = [e for e in prof.key_averages() if _device_us(e) > 0]
+        out["kernels_per_search"] = sum(e.count for e in evts) / 4
+        out["profiled_device_ms_per_search"] = sum(
+            _device_us(e) for e in evts) / 4 / 1e3
+    if vmode == "pq":
+        codes, books, _v, _d, _valid, rot = ann
+        lut = ivf_ops.adc_lut(books, qd[None], rot)
+        out["adc_ms"] = time_ms(lambda: pq_ops.adc_scores(codes, lut),
+                                iters)
+    elif vmode == "ivf_pq":
+        codes, books, _v, cents, lists, lens, _d, rot = ann
+        _, cand, _ = ivf_ops.probe_clusters(cents, lists, lens, qd[None],
+                                            stat[0])
+        lut = ivf_ops.adc_lut(books, qd[None], rot)
+        out["adc_ms"] = time_ms(lambda: ivf_ops.adc_gathered(
+            lut, codes[cand.long()]), iters)
+        out["adc_candidates"] = int(cand.shape[1])
+    return out
+
+
+def phase_ann(arrays, rng, profile=False, n_queries=32, device="cuda"):
+    """The IVF, PQ and IVF-PQ indexes on the 1M collection with clustered
+    vectors: each built on the card by the calls ``commit`` makes
+    (``CollectionReader._build_ann``), recall@10 of 64 queries against
+    brute force over the same bf16 rows, 32 queries per ANN_QUERIES mode
+    through ``search`` (launch counts reset before and read after each),
+    one query per mode held against a CPU reader of the same trained
+    arrays. Returns ({index: metrics}, launch totals)."""
+    import torch
+
+    from orama_core_tpu_torch.models.ai_service import AIService
+    from orama_core_tpu_torch.ops import _cuda
+    from orama_core_tpu_torch.ops.topk import topk_stable
+    from orama_core_tpu_torch.ops.vector import sims_f32
+    from orama_core_tpu_torch.types import SearchParams
+
+    t0 = time.perf_counter()
+    vecs, queries = clustered_corpus(arrays["doc_count"], DIM, device=device)
+    rows = torch.as_tensor(vecs, device=device).to(torch.bfloat16)
+    _, gt = topk_stable(sims_f32(rows, torch.as_tensor(
+        queries, device=device)).T, 10)
+    gt = gt.cpu().numpy()
+    del rows
+    log(f"ann: clustered corpus and ground truth in "
+        f"{time.perf_counter() - t0:.1f} s")
+    ai = AIService()
+    totals = {k: 0 for k in _cuda.LAUNCHES}
+    res = {}
+    for mode in ANN_MODES:
+        reader = make_reader(ann_arrays(arrays, vecs), device, mode)
+        c = reader._vector[1].committed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reader._build_ann(c)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        before = torch.cuda.memory_allocated()
+        reader._fused_vector_args(c, 10)     # the ANN caches
+        torch.cuda.synchronize()
+        row = {
+            "build_s": build_s,
+            "ann_gib": (torch.cuda.memory_allocated() - before) / 2**30,
+            "n_clusters": int(c.ivf_lists.shape[0]) if c.has_ivf else None,
+            "cap": int(c.ivf_lists.shape[1]) if c.has_ivf else None,
+            "nprobe": c.tuned_nprobe, "expand": c.tuned_expand,
+            "pq_m": int(c.pq_codes.shape[1]) if c.has_pq else None,
+            "rotation": c.pq_rotation is not None,
+        }
+        reader.warmup()
+        require((mode != "pq") == c.has_ivf and (mode != "ivf") == c.has_pq,
+                f"ann {mode}: built ivf={c.has_ivf} pq={c.has_pq}")
+        hits = []
+        for q in queries:
+            ranked, _n, _f = reader.search(SearchParams.from_json(
+                {"mode": "vector", "vector": q.tolist()}), ai)
+            hits.append([d for d, _ in ranked])
+        row["recall_at_10"] = float(np.mean(
+            [len(set(h) & set(g)) / 10 for h, g in zip(hits, gt)]))
+        if mode != "pq":
+            require(row["recall_at_10"] >= 0.95,
+                    f"ann {mode}: recall@10 {row['recall_at_10']}")
+        cpu_reader = make_reader(ann_arrays(arrays, None, c), "cpu", mode)
+        row["p50_ms"], row["launches"] = {}, {}
+        for name, (kind, extra, raw) in ANN_QUERIES.items():
+            bodies = []
+            for i in range(n_queries + 4):
+                body = dict(mode=kind, **extra)
+                if raw:
+                    body["vector"] = queries[i % len(queries)].tolist()
+                else:
+                    body["term"] = zipf_term(rng)
+                bodies.append(body)
+            for body in bodies[:4]:
+                reader.search(SearchParams.from_json(body), ai)
+            torch.cuda.synchronize()
+            _cuda.reset_launches()
+            lat, results = [], []
+            for body in bodies[4:]:
+                t0 = time.perf_counter()
+                results.append(reader.search(SearchParams.from_json(body), ai))
+                lat.append((time.perf_counter() - t0) * 1e3)
+            counts = dict(_cuda.LAUNCHES)
+            for k, v in counts.items():
+                totals[k] += v
+            for k in ANN_EXPECT.get(name, ()):
+                require(counts[k] > 0, f"ann {mode} {name}: {k} never ran")
+            require(sum(1 for r in results if r[1] > 0) >= n_queries // 2,
+                    f"ann {mode} {name}: most queries matched nothing")
+            for ranked, _n, _f in results:
+                scores = [s for _, s in ranked]
+                require(all(np.isfinite(scores)),
+                        f"ann {mode} {name}: non-finite score")
+                require(scores == sorted(scores, reverse=True),
+                        f"ann {mode} {name}: hits not in descending order")
+            p = SearchParams.from_json(bodies[-1])
+            got, got_n, got_f = reader.search(p, ai)
+            want, want_n, want_f = cpu_reader.search(p, ai)
+            check_hits(got, want, 1e-4, f"ann {mode} {name} vs CPU")
+            require([d for d, _ in got] == [d for d, _ in want],
+                    f"ann {mode} {name}: hit ids differ from the CPU's")
+            # a similarity within rounding of zero may change sign
+            require(abs(got_n - want_n) <= 2,
+                    f"ann {mode} {name}: count {got_n} vs {want_n}")
+            require(_facets(got_f) == _facets(want_f),
+                    f"ann {mode} {name}: facets differ")
+            row["p50_ms"][name] = float(np.percentile(lat, 50))
+            row["launches"][name] = {k: v for k, v in counts.items() if v}
+            if profile:
+                row.setdefault("profile", {})[name] = profile_window(
+                    reader, ai, [SearchParams.from_json(b)
+                                 for b in bodies[4:20]])
+        row.update(ann_timings(reader, queries[0], profile=profile))
+        res[mode] = row
+        log(f"ann {mode}: {row}")
+        del reader, cpu_reader, c
+        torch.cuda.empty_cache()
+    return res, totals
 
 
 def _facets(f):
@@ -1475,12 +1720,17 @@ def _long_docs(rng, n_docs, vocab, zipf):
     } for i in range(n_docs)]
 
 
-BUILD_PASSES = {  # name: (vector_index, docs, n_docs, kernels the pass runs)
-    "exact": ("exact", _short_docs, 5000, ("knn_subblock_max",)),
-    "int8": ("int8", _short_docs, 5000, ("knn_subblock_max_int8",)),
+BUILD_PASSES = {  # name: (vector_index, docs, n_docs, kernels the pass
+    # runs, GpuConfig knobs)
+    "exact": ("exact", _short_docs, 5000, ("knn_subblock_max",), {}),
+    "int8": ("int8", _short_docs, 5000, ("knn_subblock_max_int8",), {}),
     # > 8,192 rows, so a limit-10 query's 16 x 4 candidate sub-blocks of
     # 32 rows (x 4) stay below the corpus and K6 runs, not the dense branch
-    "chunked": ("exact", _long_docs, 2600, ("knn_subblock_max_mv",)),
+    "chunked": ("exact", _long_docs, 2600, ("knn_subblock_max_mv",), {}),
+    # commit trains IVF lists and residual PQ codes on the card (the
+    # threshold lowered below the 5,000 rows) and tunes nprobe and expand
+    "ivf_pq": ("ivf_pq", _short_docs, 5000, ("bm25_scan", "phrase_counts"),
+               {"ivf_threshold": 1000}),
 }
 
 
@@ -1491,7 +1741,8 @@ def phase_build_orama(name, seed=7, device="cuda"):
     from orama_core_tpu_torch.ops import _cuda
     from orama_core_tpu_torch.types import SearchParams
 
-    vector_index, make_docs, n_docs, expect = BUILD_PASSES[name]
+    vector_index, make_docs, n_docs, expect, knobs = BUILD_PASSES[name]
+    ann = vector_index in ANN_MODES
     work = os.path.join(ROOT, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
 
@@ -1501,6 +1752,8 @@ def phase_build_orama(name, seed=7, device="cuda"):
         c.reader_side.data_dir = os.path.join(work, "r")
         c.ai.backend = "fake"
         c.gpu.vector_index = vector_index
+        for k, v in knobs.items():
+            setattr(c.gpu, k, v)
         return c
 
     rng = np.random.default_rng(seed)
@@ -1530,9 +1783,14 @@ def phase_build_orama(name, seed=7, device="cuda"):
         {"term": "w6", "mode": "hybrid", "fusion": "minmax"},
         {"term": "w1", "where": {"price": {"gte": 30}}, "limit": 50},
     ]
-    require(reader._vector_fast_field(SearchParams.from_json(bodies[3]))
-            is not None, f"{name}: the fused kNN did not qualify")
     committed = next(iter(reader._vector.values())).committed
+    fast = reader._vector_fast_field(SearchParams.from_json(bodies[3]))
+    if ann:  # the ANN structures serve, trained by commit on the card
+        require(fast is None and committed.has_ivf and committed.has_pq
+                and committed.tuned_nprobe is not None,
+                f"{name}: commit built no IVF-PQ index")
+    else:
+        require(fast is not None, f"{name}: the fused kNN did not qualify")
     if name == "chunked":
         require(committed.n_vectors >= 4096
                 and not committed._single_vec_per_doc,
@@ -1545,7 +1803,8 @@ def phase_build_orama(name, seed=7, device="cuda"):
             check_hits([(h.id, h.score) for h in g.hits],
                        [(h.id, h.score) for h in c_.hits], 1e-4,
                        f"build_orama {name} {body}")
-            if body.get("mode") == "vector" and vector_index == "exact":
+            if ((body.get("mode") == "vector" and vector_index != "int8")
+                    or (body.get("mode") == "hybrid" and ann)):
                 require(abs(g.count - c_.count) <= 2, f"{body}: counts")
             else:
                 require(g.count == c_.count, f"{body}: counts")
@@ -1646,10 +1905,19 @@ def main() -> int:
         readers["exact"].capacity, rng), "card": card}), flush=True)
     if "--profile" in sys.argv[1:]:
         phase_profile(readers, rng)
+    del readers
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ann, ann_launches = phase_ann(arrays, rng,
+                                  profile="--profile" in sys.argv[1:])
+    for k, v in ann_launches.items():
+        launches[k] += v
+    print(json.dumps({"ann": ann, "wall_s": time.perf_counter() - t0,
+                      "card": card}), flush=True)
     for rec in records:
         rec["launches"] = launches[rec["name"]]
         require(rec["launches"] > 0, f"{rec['name']} never ran on the main path")
-    del readers
+    del arrays
     for name in BUILD_PASSES:
         phase_build_orama(name)
     batcher = phase_batcher()

@@ -6,7 +6,10 @@ search with filters and facets, over committed indexes kept on the card.
 The host side (op log, write side, indexes, tokenizer, storage) is the
 reference's code; the scoring core is torch plus six hand-written Hopper
 kernels (``csrc/``). Vector fields serve exact (bf16) or int8 indexes
-(``cfg.gpu.vector_index = "int8"``), with single- or multi-vector docs.
+(``cfg.gpu.vector_index = "int8"``), with single- or multi-vector docs,
+and the ANN indexes ``"ivf"``, ``"pq"`` and ``"ivf_pq"``, trained at
+commit on the engine's device (plain torch: the reference computes them
+outside its Pallas kernels).
 
 ``build_orama(...)`` assembles the engine as the reference does
 (`lib.rs:65-160`): AI service + write side + read side on one op channel,
@@ -15,10 +18,9 @@ the caller passes ``device="cpu"`` (or sets ``cfg.gpu.device``); on the CPU
 every kernel runs as its plain torch version. Nothing falls back from the
 card to the CPU.
 
-Not in this slice (each raises ``NotImplementedError``): a gRPC model
+Not ported yet (each raises ``NotImplementedError``): a gRPC model
 sidecar (``ai.grpc_port``), a remote model backend (``ai.remote_url``),
-query micro-batching, hooks, the jax encoder/LLM backend, IVF/PQ vector
-indexes, and mesh sharding.
+hooks, the jax encoder/LLM backend, and mesh sharding.
 """
 
 from __future__ import annotations

@@ -144,9 +144,13 @@ class GpuConfig:
     # (ops/knn.py: K2 + K3, K5 for int8, K6 for chunked docs), scans
     # postings over the aligned plan (K1) and counts phrases with K4.
     use_pallas: bool = True
-    # Vector scoring path: "exact" (bf16 rows) or "int8" (the capacity
-    # mode: int8 codes + per-row scales, half the bytes of bf16); "ivf",
-    # "pq" and "ivf_pq" raise NotImplementedError (a later slice)
+    # Vector scoring path: "exact" (bf16 rows), "int8" (the capacity
+    # mode: int8 codes + per-row scales, half the bytes of bf16), or the
+    # ANN indexes "ivf", "pq" and "ivf_pq" (IVF lists, PQ codes + exact
+    # rerank, or both with residual codes), trained at commit on
+    # ``device`` once a field holds ``ivf_threshold`` rows (below it the
+    # exact rows serve); nprobe and expand are autotuned to
+    # ``ivf_autotune_target`` recall@10 unless ``ivf_autotune`` is off
     vector_index: str = "exact"
     # The reference's int8 phase-1 choice ("xla" = its XLA int8 matmul,
     # "pallas" = its in-kernel dot), kept so its configs load. It gates

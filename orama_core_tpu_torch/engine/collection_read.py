@@ -17,14 +17,17 @@ wrapper launches its CUDA kernel for CUDA tensors and runs its plain torch
 version for CPU tensors, so the CPU tests drive the same orchestration as
 the card, and no CUDA tensor is sent around a kernel.
 
-``GpuConfig.vector_index`` "exact" (bf16 rows) and "int8" (the capacity
-mode: int8 codes and per-row scales, K5) are served; multi-vector
-(chunked) docs of an exact index take the segment-aware fused kNN (K6).
+``GpuConfig.vector_index`` "exact" (bf16 rows), "int8" (the capacity
+mode: int8 codes and per-row scales, K5) and the ANN indexes "ivf", "pq"
+and "ivf_pq" (trained at commit on the reader's device once a field
+holds ``ivf_threshold`` rows; ops/ivf.py, ops/pq.py) are served;
+multi-vector (chunked) docs of an exact index take the segment-aware
+fused kNN (K6).
 ``search_batch`` serves a micro-batch: unfiltered vector rows through the
 fused kNN at the batch's size, other rows through the batched fused
 program (one K1 launch over the batch's combined plan, one corpus
-product), phrase rows one by one. Left out (each raises or is absent):
-the sharded/mesh branches and IVF/PQ.
+product), phrase rows one by one; vector and hybrid rows of an ANN
+collection one by one. Left out (raises): the sharded/mesh branches.
 """
 
 from __future__ import annotations
@@ -118,6 +121,8 @@ def expanded_spans(term_dict, tokens: List[str], stems: List[str]):
 
 
 _MULTIVEC_FAST_MAX_CHUNKS = 64
+# the vector indexes served from trained candidate structures
+ANN_VMODES = ("ivf", "pq", "ivf_pq")
 
 
 def _multivec_fast_eligible(c) -> bool:
@@ -388,6 +393,73 @@ class _DeviceCache:
 
         return self._get(v, "vec_int8", build)
 
+    def _vector_rows_unpadded(self, v: CommittedVectorIndex) -> torch.Tensor:
+        """[P, D] rows in the vector dtype, written a chunk at a time (the
+        ANN indexes gather rows by id: no bucket padding)."""
+        dtype = (torch.bfloat16 if self.cfg.vector_dtype == "bfloat16"
+                 else torch.float32)
+        out = torch.empty(v.n_vectors, v.dimension, dtype=dtype,
+                          device=self.device)
+        chunk = 1 << 18
+        for lo in range(0, v.n_vectors, chunk):
+            out[lo:lo + chunk] = self.put(
+                np.asarray(v.vecs[lo:lo + chunk], np.float32)).to(dtype)
+        return out
+
+    def _pq_rotation(self, v: CommittedVectorIndex):
+        if v.pq_rotation is None:
+            return None
+        return self.put(np.asarray(v.pq_rotation, np.float32))
+
+    def vector_pq_arrays(self, v: CommittedVectorIndex):
+        """(codes uint8[P, M], codebooks f32[M, C, D/M], rows [P, D] in the
+        vector dtype, vec_docs i32, vec_valid f32, rotation f32[D, D] |
+        None): the flat PQ layout."""
+
+        def build():
+            return (
+                self.put(v.pq_codes),
+                self.put(np.asarray(v.pq_codebooks, np.float32)),
+                self._vector_rows_unpadded(v),
+                self.put(v.vec_docs),
+                self.put(np.ones(v.n_vectors, np.float32)),
+                self._pq_rotation(v),
+            )
+
+        return self._get(v, "vec_pq", build)
+
+    def vector_ivfpq_arrays(self, v: CommittedVectorIndex):
+        """(codes, codebooks, rows, centroids f32[C, D], lists i32[C, cap],
+        list lens i32[C], vec_docs, rotation | None): the IVF-PQ layout."""
+
+        def build():
+            return (
+                self.put(v.pq_codes),
+                self.put(np.asarray(v.pq_codebooks, np.float32)),
+                self._vector_rows_unpadded(v),
+                self.put(np.asarray(v.ivf_cents, np.float32)),
+                self.put(v.ivf_lists),
+                self.put(v.ivf_lens),
+                self.put(v.vec_docs),
+                self._pq_rotation(v),
+            )
+
+        return self._get(v, "vec_ivfpq", build)
+
+    def vector_ivf_arrays(self, v: CommittedVectorIndex):
+        """(rows, centroids, lists, list lens, vec_docs): the IVF layout."""
+
+        def build():
+            return (
+                self._vector_rows_unpadded(v),
+                self.put(np.asarray(v.ivf_cents, np.float32)),
+                self.put(v.ivf_lists),
+                self.put(v.ivf_lens),
+                self.put(v.vec_docs),
+            )
+
+        return self._get(v, "vec_ivf", build)
+
     def vector_int8_rows(self, v: CommittedVectorIndex):
         """``vector_int8_arrays`` without the bucket padding: the dense
         int8 product reads only real rows."""
@@ -510,11 +582,6 @@ class CollectionReader:
         self.description = description
         self.default_locale = default_locale
         self.cfg = gpu_cfg or GpuConfig()
-        if self.cfg.vector_index not in ("exact", "int8"):
-            raise NotImplementedError(
-                f"vector_index={self.cfg.vector_index!r}: IVF/PQ are a "
-                "later port slice"
-            )
         if self.cfg.mesh_shape:
             raise NotImplementedError("mesh_shape: sharded serving is a "
                                       "later port slice")
@@ -1099,7 +1166,7 @@ class CollectionReader:
                         )
                     else:
                         scores = scores + self._committed_vector_scores(
-                            vf.committed, q_dev, filter_mask, cap
+                            vf.committed, q_dev, filter_mask, cap, limit
                         )
                 if not vf.uncommitted.is_empty:
                     if fm_host is None:
@@ -1119,21 +1186,30 @@ class CollectionReader:
         return scores
 
     def _committed_vector_scores(self, committed, q_dev: torch.Tensor,
-                                 filter_mask: torch.Tensor,
-                                 cap: int) -> torch.Tensor:
-        """Dense committed vector scores: int8 product | exact bf16 product
-        (reference ``_committed_vector_scores``)."""
-        if self.cfg.vector_index == "int8":
+                                 filter_mask: torch.Tensor, cap: int,
+                                 limit: int) -> torch.Tensor:
+        """Dense committed vector scores: IVF-PQ | IVF | PQ candidates
+        scattered onto their docs | int8 product | exact bf16 product
+        (reference ``_committed_vector_scores``). The ANN modes resolve
+        their operands as the fused program does (``_fused_vector_args``);
+        ``limit`` sizes their candidate count."""
+        vmode, v_statics, v_ann, (vecs, docs, valid) = (
+            self._fused_vector_args(committed, limit))
+        if vmode in ANN_VMODES:
+            from ..ops.hybrid import ann_vector_scores
+
+            return ann_vector_scores(vmode, v_statics, v_ann, q_dev,
+                                     n_docs=cap) * filter_mask
+        if vmode == "int8":
             from ..ops.quant import int8_brute_force_scores
 
-            codes, scales, docs, valid = self._device.vector_int8_rows(committed)
+            codes, scales, docs, valid = v_ann
             return int8_brute_force_scores(
                 codes, scales, docs, valid, q_dev, filter_mask, n_docs=cap
             )
-        vecs, docs, valid = self._device.vector_rows(committed)
         return vector_ops.brute_force_scores(
             vecs, docs, valid, q_dev, filter_mask, n_docs=cap,
-            identity=_vec_docs_identity(committed),
+            identity=v_statics[0],
         )
 
     # -- search entry (reference: collection.rs:684-781) ----------------------
@@ -1351,6 +1427,16 @@ class CollectionReader:
         if not params_list:
             return []
         p0 = params_list[0]
+        if (p0.mode != SearchModeKind.FULLTEXT
+                and self.cfg.vector_index in ANN_VMODES):
+            # an ANN index scores each query on its own candidates, which
+            # the batch's corpus product cannot give: rows one by one
+            # (read_side batches vector modes of exact indexes only)
+            out_ann = []
+            for p in params_list:
+                ranked, count, _ = self.search(p, ai_service)
+                out_ann.append((ranked, count))
+            return out_ann
         if len(params_list) == 1 and self._vector_fast_field(p0) is None:
             # a lone query gains nothing from the batch program: the
             # single-query fused program serves it
@@ -1469,6 +1555,8 @@ class CollectionReader:
             or params.where
             # a small tombstone window is corrected host-side exactly
             or len(self.deleted) > 64
+            # the ANN indexes keep their own candidate structures
+            or self.cfg.vector_index not in ("exact", "int8")
             # phase 2 gathers k*SUB rows per query: deep limits stay dense
             or params.limit > 128
         ):
@@ -1827,12 +1915,38 @@ class CollectionReader:
         fstat = (nb, phrase, use_dense, phrase, 0, 0, n_sp, n_dsel)
         return fdev, ihost, fhost, fstat, window_out
 
-    def _fused_vector_args(self, committed):
-        """Committed vector operands of the fused program, mirroring
-        ``_committed_vector_scores``' dispatch: (vmode, v_statics, v_ann,
-        (vecs, vec_docs, vec_valid)), the exact triple None-filled for
-        int8."""
-        if self.cfg.vector_index == "int8":
+    def _fused_vector_args(self, committed, limit: int):
+        """Committed vector operands of the fused program and of
+        ``_committed_vector_scores``: (vmode, v_statics, v_ann, (vecs,
+        vec_docs, vec_valid)), the exact triple None-filled for the other
+        modes. An ANN mode whose structures were not built (the field is
+        below ``ivf_threshold``) serves the exact rows, as the reference
+        does. The ANN candidate count is max(limit, 10) times the expand
+        (the tuned one for IVF-PQ), and nprobe the tuned one, else the
+        config's."""
+        mode = self.cfg.vector_index
+        cfg = self.cfg
+        if mode == "ivf_pq" and committed.has_ivf and committed.has_pq:
+            arrays = self._device.vector_ivfpq_arrays(committed)
+            expand = committed.tuned_expand or cfg.ivf_candidate_expand
+            cand_k = min(max(limit, 10) * expand, committed.n_vectors)
+            nprobe = min(committed.tuned_nprobe or cfg.ivf_nprobe,
+                         arrays[4].shape[0])
+            return ("ivf_pq", (nprobe, cand_k, expand, committed.pq_residual),
+                    arrays, (None, None, None))
+        if mode == "ivf" and committed.has_ivf:
+            arrays = self._device.vector_ivf_arrays(committed)
+            cand_k = min(max(limit, 10) * cfg.ivf_candidate_expand,
+                         committed.n_vectors)
+            nprobe = min(committed.tuned_nprobe or cfg.ivf_nprobe,
+                         arrays[2].shape[0])
+            return ("ivf", (nprobe, cand_k), arrays, (None, None, None))
+        if mode == "pq" and committed.has_pq:
+            cand_k = min(max(limit, 10) * cfg.ivf_candidate_expand,
+                         committed.n_vectors)
+            return ("pq", (cand_k,), self._device.vector_pq_arrays(committed),
+                    (None, None, None))
+        if mode == "int8":
             return ("int8", (), self._device.vector_int8_rows(committed),
                     (None, None, None))
         return ("exact", (_vec_docs_identity(committed),), None,
@@ -1882,7 +1996,7 @@ class CollectionReader:
                     f"embedding fields have [{vf.committed.dimension}]"
                 )
             vmode, v_statics, v_ann, (vecs, vec_docs, vec_valid) = (
-                self._fused_vector_args(vf.committed)
+                self._fused_vector_args(vf.committed, params.limit)
             )
             qn = self._resolve_query_vec(
                 self.fields[vfid].model, params.term, ai_service, raw_vec
@@ -2274,10 +2388,8 @@ class CollectionReader:
                 n += 1
         for vf in self._vector.values():
             if not vf.committed.is_empty:
-                if self.cfg.vector_index == "int8":
-                    self._device.vector_int8_arrays(vf.committed)
-                else:
-                    self._device.vector_arrays(vf.committed)
+                # the caches of whatever the field's index serves
+                self._fused_vector_args(vf.committed, 10)
                 n += 1
         for nf in self._number.values():
             self._device.number_arrays(nf.committed)
@@ -2430,9 +2542,10 @@ class CollectionReader:
             for fid, vf_old in list(self._vector.items()):
                 if not vf_old.uncommitted.is_empty or deleted:
                     old = vf_old.committed
+                    merged = old.merge(vf_old.uncommitted, deleted)
+                    self._build_ann(merged)
                     self._vector[fid] = _VectorField(
-                        UncommittedVectorIndex(old.dimension),
-                        old.merge(vf_old.uncommitted, deleted),
+                        UncommittedVectorIndex(old.dimension), merged,
                     )
                     self._device.drop(old)
             # deletions are now folded into every committed generation:
@@ -2481,6 +2594,25 @@ class CollectionReader:
                     gens.append(int(mo.group(1)))
             for g in sorted(gens, reverse=True)[keep_generations:]:
                 _shutil.rmtree(os.path.join(data_dir, f"gen-{g}"), ignore_errors=True)
+
+    def _build_ann(self, committed: CommittedVectorIndex) -> None:
+        """The commit-time ANN builds of the reference, on the reader's
+        device, once the field holds ``ivf_threshold`` rows: IVF lists
+        (then nprobe autotuned), PQ codes, or both (IVF-PQ: residual codes,
+        then nprobe and expand autotuned)."""
+        cfg = self.cfg
+        mode = cfg.vector_index
+        if mode not in ANN_VMODES or committed.n_vectors < cfg.ivf_threshold:
+            return
+        dev = cfg.device
+        rotate = {"on": True, "off": False}.get(cfg.pq_rotation, "auto")
+        if mode in ("ivf", "ivf_pq"):
+            committed.build_ivf(device=dev)
+        if mode in ("pq", "ivf_pq"):
+            committed.build_pq(rotate=rotate, device=dev)
+        if mode in ("ivf", "ivf_pq") and cfg.ivf_autotune:
+            committed.tune_nprobe(target_recall=cfg.ivf_autotune_target,
+                                  device=dev)
 
     @staticmethod
     def load(data_dir: str, gpu_cfg: Optional[GpuConfig] = None) -> Optional["CollectionReader"]:

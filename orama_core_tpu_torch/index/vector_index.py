@@ -9,13 +9,15 @@ segment accumulation (ops/vector.py); IVF/PQ acceleration layers on top of
 the same layout (ops/ivf.py, ops/pq.py).
 
 Port of ``orama_core_tpu/index/vector_index.py``: host code, copied with its imports
-re-pointed at ``orama_core_tpu_torch``.
+re-pointed at ``orama_core_tpu_torch``. The ANN index builds (``build_ivf``,
+``build_pq``, ``tune_nprobe``) train on the ``device`` their caller
+passes (the reader's), with torch generators for their random draws.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Set, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
@@ -110,17 +112,165 @@ class CommittedVectorIndex:
     def has_pq(self) -> bool:
         return self.pq_codebooks is not None
 
-    # The ANN builders (IVF lists, PQ codebooks, nprobe autotuning) train
-    # on the device in the reference (vector_index.py:113-282). Only the
-    # exact layout is ported in this slice.
-    def build_pq(self, *args, **kwargs) -> None:
-        raise NotImplementedError("IVF/PQ: a later port slice")
+    def build_pq(
+        self,
+        m: Optional[int] = None,
+        n_codes: int = 256,
+        seed: int = 0,
+        rotate: Any = "auto",
+        device: str = "cuda",
+    ) -> None:
+        """Train per-subspace codebooks on ``device`` and encode the corpus.
+        M defaults to D/8 (8 dims per subspace, ~32x compression at f32).
+        ``rotate``: "auto" (default) measures held-out reconstruction error
+        raw vs parametric-OPQ basis (ops/pq.choose_rotation) and keeps the
+        better; True forces it, False disables."""
+        import torch
 
-    def build_ivf(self, *args, **kwargs) -> None:
-        raise NotImplementedError("IVF/PQ: a later port slice")
+        from ..ops import ivf as ivf_ops
+        from ..ops import pq as pq_ops
 
-    def tune_nprobe(self, *args, **kwargs) -> Optional[int]:
-        raise NotImplementedError("IVF/PQ: a later port slice")
+        if self.n_vectors == 0:
+            return
+        d = self.dimension
+        if m is None:
+            m = max(1, d // 8)
+        while d % m:
+            m -= 1
+        v = torch.as_tensor(np.asarray(self.vecs, np.float32), device=device)
+        if self.has_ivf:
+            # residual IVF-PQ: quantize v - cents[cluster(v)]
+            cents = torch.as_tensor(self.ivf_cents, device=device)
+            assign = ivf_ops.assign_clusters_chunked(v, cents)
+            v = pq_ops.residuals(v, cents, torch.as_tensor(assign,
+                                                           device=device))
+            self.pq_residual = True
+        else:
+            self.pq_residual = False
+        nc = min(n_codes, max(self.n_vectors, 2))
+        if rotate == "auto" and m > 1:
+            self.pq_rotation = pq_ops.choose_rotation(v, m, seed + 1,
+                                                      n_codes=nc)
+        elif rotate is True and m > 1:
+            self.pq_rotation = pq_ops.opq_rotation(v, m)
+        else:
+            self.pq_rotation = None
+        if self.pq_rotation is not None:
+            v = v @ torch.as_tensor(self.pq_rotation, device=device)
+        books = pq_ops.pq_train(v, torch.Generator().manual_seed(seed), m=m,
+                                n_codes=nc)
+        codes = pq_ops.pq_encode(v, books)
+        self.pq_codebooks = books.cpu().numpy().astype(np.float32)
+        self.pq_codes = codes.cpu().numpy().astype(np.uint8)
+
+    def build_ivf(self, n_clusters: Optional[int] = None, seed: int = 0,
+                  device: str = "cuda") -> None:
+        """Cluster the corpus on ``device`` (spherical k-means) and pack
+        member lists. C defaults to ~sqrt(P) rounded to a multiple of 8."""
+        import torch
+
+        from ..ops import ivf as ivf_ops
+
+        p = self.n_vectors
+        if p == 0:
+            return
+        if n_clusters is None:
+            n_clusters = max(8, int(np.sqrt(p) / 8) * 8)
+        n_clusters = min(n_clusters, max(1, p))
+        v = torch.as_tensor(np.asarray(self.vecs, np.float32), device=device)
+        cents = ivf_ops.kmeans(v, torch.Generator().manual_seed(seed),
+                               n_clusters, iters=10)
+        assign = ivf_ops.assign_clusters_chunked(v, cents)
+        # skew control (ops/ivf.split_skewed): the list table pads to the
+        # largest cluster, so oversized clusters are split until bounded
+        # by ~4x the mean
+        cents, assign = ivf_ops.split_skewed(
+            v, cents, assign,
+            target=max(256, 4 * p // n_clusters),
+            rng=np.random.default_rng(seed + 1),
+        )
+        lists, lens, _ = ivf_ops.build_ivf_lists(assign, int(cents.shape[0]))
+        self.ivf_cents = cents.cpu().numpy().astype(np.float32)
+        self.ivf_lists = lists
+        self.ivf_lens = lens
+
+    def tune_nprobe(
+        self,
+        k: int = 10,
+        target_recall: float = 0.95,
+        n_sample: int = 128,
+        expand: int = 10,
+        seed: int = 7,
+        device: str = "cuda",
+    ) -> Optional[int]:
+        """Autotune nprobe against brute-force ground truth on ``device``:
+        sample held-out-style queries (perturbed corpus rows), double
+        nprobe until recall@k >= target; with PQ, a plateau then doubles
+        the ADC expand up to 128. Sets and returns ``tuned_nprobe``."""
+        import torch
+
+        from ..ops import ivf as ivf_ops
+        from ..ops.topk import topk_stable
+
+        if not self.has_ivf or self.n_vectors < 2 * k:
+            return None
+        rng = np.random.default_rng(seed)
+        n_sample = min(n_sample, self.n_vectors)
+        rows = rng.choice(self.n_vectors, size=n_sample, replace=False)
+        q = self.vecs[rows] + 0.05 * rng.standard_normal(
+            (n_sample, self.dimension)
+        ).astype(np.float32)
+        q /= np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-12)
+        put = lambda a: torch.as_tensor(np.asarray(a), device=device)  # noqa: E731
+        q_dev = put(q.astype(np.float32))
+        v_dev = put(np.asarray(self.vecs, np.float32))
+        # brute-force ground truth, 16 queries at a time: one
+        # [n_sample, P] sims matrix at 10M vectors is ~5 GB
+        gt_parts = []
+        for lo in range(0, n_sample, 16):
+            _, gt_c = topk_stable(q_dev[lo:lo + 16] @ v_dev.T, k)
+            gt_parts.append(gt_c.cpu().numpy())
+        gt = np.concatenate(gt_parts, axis=0)
+        cents, lists, lens = (put(self.ivf_cents), put(self.ivf_lists),
+                              put(self.ivf_lens))
+        n_clusters = self.ivf_lists.shape[0]
+        if self.has_pq:
+            codes, books = put(self.pq_codes), put(self.pq_codebooks)
+            rot = (put(self.pq_rotation) if self.pq_rotation is not None
+                   else None)
+
+        def recall_at(nprobe: int, exp: int) -> float:
+            if self.has_pq:
+                _, ids = ivf_ops.ivf_pq_search(
+                    codes, books, v_dev, cents, lists, lens, q_dev,
+                    nprobe=nprobe, k=k, expand=exp,
+                    residual=self.pq_residual, rotation=rot,
+                )
+            else:
+                _, ids = ivf_ops.ivf_search(
+                    v_dev, cents, lists, lens, q_dev, nprobe=nprobe, k=k
+                )
+            ids = ids.cpu().numpy()
+            hits = sum(len(set(ids[i]) & set(gt[i])) for i in range(n_sample))
+            return hits / float(n_sample * k)
+
+        # grow nprobe until the target or a plateau; a plateau with PQ means
+        # the ADC candidate budget is the bottleneck: grow expand instead
+        nprobe, prev = 1, -1.0
+        while True:
+            recall = recall_at(nprobe, expand)
+            if recall >= target_recall or nprobe >= n_clusters:
+                break
+            if self.has_pq and prev >= 0 and recall - prev < 0.005:
+                break
+            prev = recall
+            nprobe = min(nprobe * 2, n_clusters)
+        while self.has_pq and recall < target_recall and expand < 128:
+            expand *= 2
+            recall = recall_at(nprobe, expand)
+        self.tuned_nprobe = int(nprobe)
+        self.tuned_expand = int(expand)
+        return self.tuned_nprobe
 
     @property
     def n_vectors(self) -> int:

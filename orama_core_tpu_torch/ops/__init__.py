@@ -7,7 +7,9 @@ from . import (  # noqa: F401
     facets,
     filters,
     fusion,
+    ivf,
     knn,
+    pq,
     topk,
     vector,
 )

@@ -1,19 +1,19 @@
 """Fused hybrid serving program: one call per query.
 
-Port of ``orama_core_tpu/ops/hybrid.py`` (``hybrid_fused_topk_mf``,
-``vmode`` "exact" and "int8"; the reference's sequential hybrid join,
-collection.rs:730-772). The whole query
+Port of ``orama_core_tpu/ops/hybrid.py`` (``hybrid_fused_topk_mf``, every
+``vmode``; the reference's sequential hybrid join, collection.rs:730-772).
+The whole query
 
     filter masks -> per-field BM25 (K1 scan + dense head rows + K4 phrase
-    boost) -> exact bf16 or int8 vector product -> RRF/min-max fusion ->
+    boost) -> exact bf16 or int8 vector product, or the ANN candidates of
+    IVF, PQ or IVF-PQ scattered onto their docs -> RRF/min-max fusion ->
     top-k + count + facet counts
 
 runs as one sequence of device launches with no host sync before the
 results are read. The staging layout is the reference's (two small
 buffers, one int32 and one float32, unpacked at static offsets), so the
 engine's host packing ports line for line. ``hybrid_fused_topk_batch``
-serves a micro-batch of rows in the same way. The ANN vmodes (ivf, pq,
-ivf_pq) are a later slice.
+serves a micro-batch of rows in the same way (exact vectors only).
 """
 
 from __future__ import annotations
@@ -23,6 +23,8 @@ import torch
 from . import bm25 as bm25_ops
 from . import facets as facet_ops
 from . import filters as filter_ops
+from . import ivf as ivf_ops
+from . import pq as pq_ops
 from . import quant as quant_ops
 from . import vector as vector_ops
 from .fusion import (dense_topk, minmax_fuse, rrf_candidate_count,
@@ -70,6 +72,36 @@ def _field_fulltext_score(fargs, fstat, *, n_docs: int, bm25_pallas: bool):
     return ft
 
 
+def ann_vector_scores(vmode: str, v_statics: tuple, v_ann: tuple,
+                      query: torch.Tensor, *, n_docs: int) -> torch.Tensor:
+    """f32[n_docs]: the ANN candidates of one query (``vmode`` "ivf_pq",
+    "ivf" or "pq", operands as ``_fused_vector_args`` resolves them), each
+    adding relu(similarity) to its doc (the reference's ``.at[].add``)."""
+    q = query[None, :]
+    if vmode == "ivf_pq":
+        codes, books, fvecs, cents, lists, lens, v_docs, rot = v_ann
+        nprobe, cand_k, expand, residual = v_statics
+        sims, rows = ivf_ops.ivf_pq_search(
+            codes, books, fvecs, cents, lists, lens, q, nprobe=nprobe,
+            k=cand_k, expand=expand, residual=residual, rotation=rot,
+        )
+    elif vmode == "ivf":
+        fvecs, cents, lists, lens, v_docs = v_ann
+        nprobe, cand_k = v_statics
+        sims, rows = ivf_ops.ivf_search(fvecs, cents, lists, lens, q,
+                                        nprobe=nprobe, k=cand_k)
+    elif vmode == "pq":
+        codes, books, fvecs, v_docs, v_valid, rot = v_ann
+        (cand_k,) = v_statics
+        sims, rows = pq_ops.pq_topk_rerank(codes, books, fvecs, v_valid, q,
+                                           k=cand_k, expand=1, rotation=rot)
+    else:
+        raise ValueError(f"vmode={vmode!r} is not an ANN mode")
+    out = torch.zeros(n_docs, dtype=torch.float32, device=query.device)
+    return out.index_add_(0, v_docs[rows[0].long()].long(),
+                          torch.clamp(sims[0], min=0.0))
+
+
 def hybrid_fused_topk_mf(
     ints, flts, fields, vecs, vec_docs, vec_valid, alive_mask, filter_cols,
     facet_cols=(), *, n_docs: int, k: int, fusion: str, filters, facets=(),
@@ -84,8 +116,6 @@ def hybrid_fused_topk_mf(
     single-valued number column from its doc-major plane (cols =
     (plane,)). Returns (vals f32[k], ids int32[k], count int32, facet
     counts tuple)."""
-    if vmode not in ("exact", "int8"):
-        raise NotImplementedError(f"vmode={vmode!r}: a later port slice")
     dev = alive_mask.device
     ic = [0]
     fc = [0]
@@ -207,13 +237,16 @@ def hybrid_fused_topk_mf(
             sims = vector_ops.sims_f32(vecs, query[None, :])[:, 0]
             sims = torch.clamp(sims, min=0.0) * vec_valid
             vec = vector_ops.doc_scores(sims, vec_docs, n_docs, identity)
-        else:  # "int8"
+        elif vmode == "int8":
             codes, scales, v_docs, v_valid = v_ann
             # the mask is {0,1}: applying it here AND after the window add
             # is idempotent, as in the reference
             vec = quant_ops.int8_brute_force_scores(
                 codes, scales, v_docs, v_valid, query, mask, n_docs=n_docs
             )
+        else:  # "ivf_pq", "ivf", "pq"
+            vec = ann_vector_scores(vmode, v_statics, v_ann, query,
+                                    n_docs=n_docs)
         if u_vec_n:
             vec = vec.index_add(0, u_vec_idx.long(), u_vec_vals)
         vec = vec * mask

@@ -165,10 +165,15 @@ def test_int8_and_ann_modes_at_construction():
 
     CollectionReader("c", "rk", None, GpuConfig(device="cpu",
                                                 vector_index="int8"))
-    for mode in ("ivf", "pq", "ivf_pq"):
-        with pytest.raises(NotImplementedError, match="IVF/PQ"):
-            CollectionReader("c", "rk", None,
-                             GpuConfig(device="cpu", vector_index=mode))
+    # the ANN modes construct (tests/test_torch_engine_ann.py serves
+    # them); sharded serving still raises under every index
+    for mode in ("int8", "ivf", "pq", "ivf_pq"):
+        rd = CollectionReader("c", "rk", None,
+                              GpuConfig(device="cpu", vector_index=mode))
+        assert rd.cfg.vector_index == mode
+        with pytest.raises(NotImplementedError, match="mesh_shape"):
+            CollectionReader("c", "rk", None, GpuConfig(
+                device="cpu", vector_index=mode, mesh_shape=(2, 1)))
 
 
 def test_int8_reference_data_dir_loads_into_port(tmp_path):

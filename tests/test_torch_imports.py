@@ -63,3 +63,42 @@ def test_build_orama_on_cpu_loads_no_jax(tmp_path):
     )
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip().endswith("ok")
+
+
+def test_ann_commit_on_cpu_loads_no_jax(tmp_path):
+    """The IVF-PQ index builds and searches (ops/ivf.py, ops/pq.py) run
+    through a commit and a search without JAX in the process."""
+    code = (
+        "import sys\n"
+        "from orama_core_tpu_torch import build_orama\n"
+        "from orama_core_tpu_torch.config import OramaxConfig\n"
+        "from orama_core_tpu_torch.types import SearchParams\n"
+        "cfg = OramaxConfig()\n"
+        "cfg.writer_side.data_dir = 'w'; cfg.reader_side.data_dir = 'r'\n"
+        "cfg.ai.backend = 'fake'\n"
+        "cfg.gpu.vector_index = 'ivf_pq'; cfg.gpu.ivf_threshold = 1\n"
+        "e = build_orama(cfg, start_background=False, device='cpu')\n"
+        "e.write_side.create_collection('master', 'c', 'r', 'w')\n"
+        "e.flush()\n"
+        "e.write_side.write('c', [{'id': str(i), 'body': f'doc {i} word{i % 7}'}"
+        " for i in range(64)], 'w')\n"
+        "e.commit()\n"
+        "c = next(iter(e.read_side._reader('c')._vector.values())).committed\n"
+        "assert c.has_ivf and c.has_pq, c\n"
+        "r = e.read_side.search('c', SearchParams.from_json("
+        "{'term': 'word3', 'mode': 'hybrid'}), 'r')\n"
+        "assert r.count > 0, r\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'orama_core_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.dirname(PKG) + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().endswith("ok")

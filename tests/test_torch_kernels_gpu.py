@@ -449,3 +449,51 @@ def test_k2_k6_raise_on_what_they_do_not_take():
         port.subblock_max_mv(v, rd, q, 32, 4096, 65)
     with pytest.raises(TypeError):
         port.subblock_max(v.float(), q, 32, 4096)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ann_ops_on_card_match_cpu(dtype):
+    """The ANN searches and a Lloyd step (plain torch: no kernel of their
+    own) give on the card what they give on the CPU on the same inputs:
+    the same ids, scores within f32 summation order."""
+    _need_card()
+    from orama_core_tpu_torch.ops import ivf, pq
+
+    rng = np.random.default_rng(11)
+    n, d = 20_000, 64
+    modes = rng.standard_normal((40, d)).astype(np.float32)
+    v = modes[rng.integers(0, 40, n)] + 0.15 * rng.standard_normal((n, d))
+    v = (v / np.linalg.norm(v, axis=1, keepdims=True)).astype(np.float32)
+    q = v[rng.integers(0, n, 8)] + 0.05 * rng.standard_normal((8, d))
+    q = (q / np.linalg.norm(q, axis=1, keepdims=True)).astype(np.float32)
+    vc, qc = torch.from_numpy(v), torch.from_numpy(q)
+    dt = getattr(torch, dtype)
+
+    cents = ivf.kmeans_refine(vc, vc[:64], iters=1)
+    torch.testing.assert_close(
+        ivf.kmeans_refine(vc.cuda(), vc[:64].cuda(), iters=1).cpu(), cents,
+        rtol=0, atol=1e-5)
+    assign = ivf.assign_clusters_chunked(vc, cents)
+    lists, lens, _ = ivf.build_ivf_lists(assign, 64)
+    res = pq.residuals(vc, cents, torch.from_numpy(assign))
+    rot = torch.from_numpy(pq.opq_rotation(res, 8))
+    books = pq.pq_train(res @ rot, torch.Generator().manual_seed(0), m=8,
+                        n_codes=64, iters=3)
+    codes = pq.pq_encode(res @ rot, books)
+    assert (pq.pq_encode((res @ rot).cuda(), books.cuda()).cpu()
+            == codes).float().mean() > 0.999
+    args = [codes, books, vc.to(dt), cents, torch.from_numpy(lists),
+            torch.from_numpy(lens), qc]
+    want = ivf.ivf_pq_search(*args, nprobe=8, k=10, expand=8, residual=True,
+                             rotation=rot)
+    got = ivf.ivf_pq_search(*[a.cuda() for a in args], nprobe=8, k=10,
+                            expand=8, residual=True, rotation=rot.cuda())
+    assert torch.equal(got[1].cpu(), want[1])
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-5, atol=1e-6)
+    valid = torch.ones(n)
+    want = pq.pq_topk(codes, books, valid, qc, 50, rotation=rot)
+    got = pq.pq_topk(codes.cuda(), books.cuda(), valid.cuda(), qc.cuda(), 50,
+                     rotation=rot.cuda())
+    assert torch.equal(got[1].cpu(), want[1])
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-5, atol=1e-6)
