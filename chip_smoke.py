@@ -81,6 +81,24 @@ line). After phase 5, ``build_orama`` with ``query_batching=True``
 serves 24 concurrent threads through the micro-batcher with the
 unbatched hits (one ``{"batcher": ...}`` line).
 
+Last, the serve phase (one ``{"serve": ...}`` line): the port's
+``WebServer`` in-process on the card with ``ai.backend="jax"``
+(``jax-minilm`` embeddings, the ``jax-tiny`` decoder) and the background
+loops; 5,000 short and 2,000 long documents inserted over HTTP until all
+are committed with their vectors (ingest seconds, passages/s); 32 queries
+each of fulltext, phrase, vector, hybrid RRF and chunked vector over HTTP
+(K1-K4, K6), each held against the in-process ``read_side.search`` (p50
+of both); one answer and one planned-answer stream in the reference's
+event order; the card's passage embeddings against the plain CPU encoder
+on the same parameters (cosine >= 0.999); ``tests/assets/tiny-semantic``
+loaded on the card by the port's own reader and tokenizer, ranking
+tests/test_semantic_e2e.py's four queries; encoder throughput at the
+jax-minilm and bge-small widths for 64 x 128 and 64 x 512 tokens against
+its bound; the decoder at Qwen2.5-3B's width (seeded bf16 weights made on
+the card): prefill of 512 tokens, decode ms per token over 64 tokens
+against the bytes a token reads, GiB, and the cached decode's logits
+against a full forward.
+
 With ``--profile``, each engine mode and each batch shape is also traced
 with torch.profiler (device busy share, top ops by device time and, per
 engine mode, by host self time). The
@@ -1821,6 +1839,484 @@ def phase_build_orama(name, seed=7, device="cuda"):
         f"({time.perf_counter() - t0:.1f} s)")
 
 
+# -- the models, the answer engine and the HTTP server --------------------------
+
+SERVE_MODES = {  # mode: (collection, search mode, query words, kernels)
+    "fulltext": ("short", "fulltext", 1, ("bm25_scan",)),
+    "phrase": ("short", "fulltext", 2, ("bm25_scan", "phrase_counts")),
+    "vector": ("short", "vector", 2, ("knn_subblock_max", "knn_rescore")),
+    "hybrid_rrf": ("short", "hybrid", 1, ("bm25_scan",)),
+    "vector_chunked": ("long", "vector", 2, ("knn_subblock_max_mv",)),
+}
+# The fused kNN serves a committed field of at least 4,096 rows
+# (CollectionReader._vector_fast_field), and K6 a chunked one of more than
+# k x 4 x 32 x 4 = 8,192 rows (ops/knn.py's dense cut; a limit of 10 takes
+# k = 16): 5,000 short docs (one row each) and 2,000 long ones (3-6 chunk
+# rows each, ~9,400 in all).
+SERVE_DOCS = {"short": 5000, "long": 2000}
+
+
+def _http(base, method, path, body=None, bearer=None, timeout=120):
+    import urllib.error
+    import urllib.request
+
+    headers = {"Content-Type": "application/json"}
+    if bearer:
+        headers["Authorization"] = f"Bearer {bearer}"
+    data = json.dumps(body).encode() if body is not None else None
+    req = urllib.request.Request(base + path, data=data, headers=headers,
+                                 method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read() or b"null")
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode(errors="replace")
+
+
+def _sse(base, path, body):
+    import urllib.request
+
+    req = urllib.request.Request(
+        base + path, data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"}, method="POST")
+    with urllib.request.urlopen(req, timeout=300) as r:
+        require(r.headers["Content-Type"].startswith("text/event-stream"),
+                f"{path}: not an event stream")
+        return [json.loads(line.decode()[6:]) for line in r
+                if line.decode().startswith("data: ")]
+
+
+def _vector_docs(reader):
+    """(docs with a vector row, docs with one only in the uncommitted
+    window) of the reader's embedding field."""
+    vf = next(iter(reader._vector.values()))
+    live = {d for d, _ in list(vf.uncommitted.entries)}
+    return live | set(vf.committed.vec_docs.tolist()), live
+
+
+def serve_http(n_queries=32, seed=17):
+    """``python -m orama_core_tpu_torch``'s server in-process on the card:
+    ingest over HTTP until every doc is committed with its vectors, then
+    each mode's queries over HTTP and in-process (equal hits), the answer
+    and planned-answer streams, and the passage embeddings of the card
+    against the port's plain CPU encoder on the same parameters."""
+    import torch
+
+    from orama_core_tpu_torch import build_orama
+    from orama_core_tpu_torch.config import OramaxConfig
+    from orama_core_tpu_torch.models.encoder import (
+        EncoderEmbedder, HashTokenizer, params_from_numpy)
+    from orama_core_tpu_torch.models.llm import ChatLLM
+    from orama_core_tpu_torch.ops import _cuda
+    from orama_core_tpu_torch.server.http import WebServer
+    from orama_core_tpu_torch.types import SearchParams
+
+    work = os.path.join(ROOT, "build", "chip_smoke_serve")
+    shutil.rmtree(work, ignore_errors=True)
+    cfg = OramaxConfig()
+    cfg.writer_side.data_dir = os.path.join(work, "w")
+    cfg.reader_side.data_dir = os.path.join(work, "r")
+    cfg.reader_side.commit_interval_sec = 2.0
+    cfg.ai.backend = "jax"
+    cfg.ai.embedding_model = "jax-minilm"
+    cfg.writer_side.default_embedding_model = "jax-minilm"
+    cfg.ai.llm_model = "jax-tiny"
+    cfg.gpu.device = "cuda"
+    cfg.http.port = 0
+    rng = np.random.default_rng(seed)
+    vocab = [f"w{i}" for i in range(400)]
+    zipf = 1.0 / np.arange(1, 401) ** 0.8
+    zipf /= zipf.sum()
+    docs = {"short": _short_docs(rng, SERVE_DOCS["short"], vocab, zipf),
+            "long": _long_docs(rng, SERVE_DOCS["long"], vocab, zipf)}
+    orama = build_orama(cfg, start_background=True)
+    server = WebServer(orama)
+    server.start_background()
+    base = f"http://127.0.0.1:{server.port}"
+    side = orama.read_side
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        for cid in docs:
+            st, _ = _http(base, "POST", "/v1/collections/create",
+                          {"id": cid, "read_api_key": "rk",
+                           "write_api_key": "wk",
+                           "embeddings": {"model": "jax-minilm"}}, "master")
+            require(st == 201, f"serve: create {cid}: {st}")
+        for cid, batch in (("short", 500), ("long", 100)):
+            for lo in range(0, len(docs[cid]), batch):
+                st, res = _http(base, "POST", f"/v1/collections/{cid}/insert",
+                                docs[cid][lo:lo + batch], "wk")
+                require(st == 200, f"serve: insert {cid}: {st} {res}")
+        t_sent = time.perf_counter() - t0
+        deadline = time.perf_counter() + 300
+        while True:  # every doc searchable: committed with its vector rows
+            ready = True
+            for cid in docs:
+                try:
+                    have, live = _vector_docs(side._reader(cid))
+                except (KeyError, StopIteration):
+                    ready = False
+                    break
+                ready &= len(have) == len(docs[cid]) and not live
+            if ready:
+                break
+            require(time.perf_counter() < deadline,
+                    "serve: documents not searchable after 300 s")
+            time.sleep(0.05)
+        ingest_s = time.perf_counter() - t0
+        rows = {cid: next(iter(side._reader(cid)._vector.values()))
+                .committed.n_vectors for cid in docs}
+        out["ingest"] = {
+            "docs": SERVE_DOCS, "passages": rows, "http_send_s": t_sent,
+            "wall_s": ingest_s, "passages_per_s": sum(rows.values()) / ingest_s}
+        log(f"serve: ingest {out['ingest']}")
+
+        # no fallback hides the card
+        emb = side.ai._embedder("jax-minilm")
+        require(isinstance(emb, EncoderEmbedder) and emb.device.type == "cuda"
+                and emb.params["tok_emb"].is_cuda,
+                f"serve: the encoder is not on the card ({emb!r})")
+        require(isinstance(emb.tokenizer, HashTokenizer),
+                "serve: jax-minilm lost its tokenizer")
+
+        # queries over HTTP and in-process
+        for cid in docs:  # first-use allocations of each branch
+            for kind in ("fulltext", "vector", "hybrid"):
+                side.search(cid, SearchParams.from_json(
+                    {"term": "w1 w2", "mode": kind}), "rk")
+        _cuda.reset_launches()
+        p50 = {}
+        for mode, (cid, kind, n_words, _) in SERVE_MODES.items():
+            bodies = [{"term": " ".join(rng.choice(vocab, n_words, p=zipf)),
+                       "mode": kind} for _ in range(n_queries)]
+            before = dict(_cuda.LAUNCHES)
+            lat_http, lat_proc = [], []
+            for body in bodies:
+                t1 = time.perf_counter()
+                st, res = _http(base, "POST",
+                                f"/v1/collections/{cid}/search?api-key=rk",
+                                body)
+                lat_http.append((time.perf_counter() - t1) * 1e3)
+                require(st == 200, f"serve {mode} {body}: {st} {res}")
+                t1 = time.perf_counter()
+                want = side.search(cid, SearchParams.from_json(body), "rk")
+                lat_proc.append((time.perf_counter() - t1) * 1e3)
+                check_hits([(h["id"], h["score"]) for h in res["hits"]],
+                           [(h.id, h.score) for h in want.hits], 1e-5,
+                           f"serve {mode} HTTP vs in-process {body}")
+                require(res["count"] == want.count,
+                        f"serve {mode} {body}: count {res['count']} vs "
+                        f"{want.count}")
+            got = {k: _cuda.LAUNCHES[k] - before[k] for k in before}
+            for name in SERVE_MODES[mode][3]:
+                require(got[name] > 0, f"serve {mode}: {name} never ran")
+            p50[mode] = {"http": float(np.percentile(lat_http, 50)),
+                         "in_process": float(np.percentile(lat_proc, 50))}
+            log(f"serve {mode}: p50 {p50[mode]}, launches {got}")
+        out["p50_ms"] = p50
+
+        # the answer engine over HTTP, on the port's decoder
+        events = _sse(base, "/v1/collections/short/answer?api-key=rk",
+                      {"query": "what about w3 and w7?"})
+        types = [e["type"] for e in events]
+        require(types[:4] == ["acknowledgement", "optimizing-query",
+                              "optimized-query", "sources"]
+                and set(types[4:]) == {"answer_chunk"}
+                and events[-1]["message"]["is_final"] is True
+                and all(not e["message"]["is_final"] for e in events[4:-1]),
+                f"serve: answer events out of order: {types}")
+        require(events[3]["message"]["count"] > 0, "serve: answer found nothing")
+        plan = _sse(base, "/v1/collections/short/planned_answer?api-key=rk",
+                    {"query": "tell me about w5"})
+        actions = [json.loads(e["message"])["action"] for e in plan]
+        require(actions[0] == "ACTION_PLAN"
+                and "PERFORM_ORAMA_SEARCH" in actions
+                and actions[-1] == "GIVE_REPLY",
+                f"serve: planned answer actions {actions}")
+        llm = side.ai._get_llm()
+        require(isinstance(llm, ChatLLM) and llm.device.type == "cuda"
+                and llm.params["lm_head"].is_cuda,
+                f"serve: the LLM is not on the card ({llm!r})")
+        out["launches"] = dict(_cuda.LAUNCHES)
+        out["answer_events"] = len(events)
+        out["planned_actions"] = actions
+
+        # the card's passage embeddings against the plain CPU encoder
+        cpu = EncoderEmbedder("jax-minilm", cfg=emb.cfg,
+                              params=params_from_numpy(emb.params, emb.cfg,
+                                                       "cpu"),
+                              tokenizer=emb.tokenizer, device="cpu")
+        texts = ["passage: " + d["title"] + " " + d["body"]
+                 for d in docs["short"][:192]]
+        texts += ["passage: " + d["body"][:600] for d in docs["long"][:64]]
+        a, b = emb.embed(texts), cpu.embed(texts)
+        cos = (a * b).sum(-1) / (np.linalg.norm(a, axis=-1)
+                                 * np.linalg.norm(b, axis=-1))
+        require(float(cos.min()) >= 0.999,
+                f"serve: card vs CPU encoder cosine {float(cos.min())}")
+        out["encoder_cpu_cosine_min"] = float(cos.min())
+        del cpu
+    finally:
+        server.stop()
+        orama.close()
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve_semantic():
+    """tests/assets/tiny-semantic through the port's safetensors reader
+    and WordPiece tokenizer on the card: tests/test_semantic_e2e.py's four
+    cross-vocabulary queries rank their target first."""
+    from orama_core_tpu_torch import build_orama
+    from orama_core_tpu_torch.config import OramaxConfig
+    from orama_core_tpu_torch.models.encoder import EncoderEmbedder
+    from orama_core_tpu_torch.types import SearchParams
+
+    passages = {
+        "baking": "Combine the flour, sugar and butter, then leave the tin "
+        "in a hot oven for forty minutes.",
+        "astronomy": "The telescope's mirror gathers faint light from "
+        "galaxies billions of parsecs away.",
+        "football": "The striker volleyed the cross into the top corner "
+        "just before the final whistle.",
+        "medicine": "The physician prescribed antibiotics after the blood "
+        "test confirmed a bacterial infection.",
+    }
+    queries = {
+        "baking": "how do I make a cake",
+        "astronomy": "observing distant stars at night",
+        "football": "an exciting soccer goal",
+        "medicine": "treatment for an illness caused by germs",
+    }
+    work = os.path.join(ROOT, "build", "chip_smoke_semantic")
+    shutil.rmtree(work, ignore_errors=True)
+    cfg = OramaxConfig()
+    cfg.writer_side.data_dir = os.path.join(work, "w")
+    cfg.reader_side.data_dir = os.path.join(work, "r")
+    cfg.ai.backend = "jax"
+    cfg.ai.embedding_model = "bge-small"
+    cfg.writer_side.default_embedding_model = "bge-small"
+    cfg.ai.embedding_checkpoint_path = os.path.join(
+        ROOT, "tests", "assets", "tiny-semantic")
+    e = build_orama(cfg, start_background=False, device="cuda")
+    try:
+        emb = e.read_side.ai._embedder("bge-small")
+        require(isinstance(emb, EncoderEmbedder) and emb.device.type == "cuda"
+                and emb.cfg.hidden == 96,
+                f"semantic: the checkpoint did not load on the card ({emb!r})")
+        e.write_side.create_collection("master", "sem", "rk", "wk")
+        e.flush()
+        docs = [{"id": t, "body": x} for t, x in passages.items()]
+        docs += [{"id": f"noise{i}", "body": f"miscellaneous filler entry {i}"}
+                 for i in range(20)]
+        e.write_side.write("sem", docs, "wk")
+        e.commit()
+        ranks = {}
+        for topic, q in queries.items():
+            r = e.read_side.search("sem", SearchParams.from_json(
+                {"term": q, "mode": "vector", "limit": 3}), "rk")
+            ranks[topic] = [h.id for h in r.hits]
+            require(r.hits and r.hits[0].id == topic,
+                    f"semantic: {q!r} ranked {ranks[topic]}")
+    finally:
+        e.close()
+        shutil.rmtree(work, ignore_errors=True)
+    return {"checkpoint": "tests/assets/tiny-semantic", "top3": ranks}
+
+
+def encoder_throughput(batch=64, iters=3):
+    """Encoder forward at the registry's jax-minilm width (6 layers) and
+    BAAI/bge-small-en-v1.5's (12 layers): hidden 384, 12 heads, MLP 1,536,
+    vocab 30,522, bf16, seeded random weights made on the card; batches of
+    64 x 128 and 64 x 512 real tokens. Device ms by CUDA events; bound =
+    bf16 dense FLOPs / 989 TFLOP/s + f32 attention FLOPs / 67 TFLOP/s (the
+    logits and the weighted sum; TF32 off)."""
+    import dataclasses
+
+    import torch
+
+    from orama_core_tpu_torch.models import encoder as enc
+
+    rows = []
+    for name, layers in (("jax-minilm", 6), ("bge-small", 12)):
+        cfg = dataclasses.replace(enc.MINILM, layers=layers)
+        params = enc.init_params(
+            cfg, torch.Generator("cuda").manual_seed(layers), "cuda")
+        h, m = cfg.hidden, cfg.mlp
+        for length in (128, 512):
+            g = torch.Generator("cuda").manual_seed(length)
+            ids = torch.randint(1, cfg.vocab_size, (batch, length),
+                                generator=g, device="cuda")
+            mask = torch.ones(batch, length, device="cuda")
+            with torch.inference_mode():
+                # few calls: a forward is 100-300 launches, and more queued
+                # behind time_ms's spin would time the host's launch rate
+                ms = time_ms(lambda: enc.encode(params, cfg, ids, mask), iters)
+                out = enc.encode(params, cfg, ids, mask)
+            require(bool(torch.isfinite(out).all())
+                    and out.shape == (batch, cfg.out_dim),
+                    f"encoder {name} x {length}: bad output")
+            tokens = batch * length
+            dense = 2.0 * tokens * (4 * h * h + 2 * h * m) * layers
+            attn = 4.0 * batch * length * length * h * layers
+            bound = (dense / BF16_FLOPS + attn / F32_FLOPS) * 1e3
+            rows.append({"model": name, "layers": layers, "batch": batch,
+                         "tokens": length, "ms": ms,
+                         "passages_per_s": batch / ms * 1e3,
+                         "bf16_gflop": dense / 1e9, "f32_gflop": attn / 1e9,
+                         "bound_ms": bound, "share": bound / ms})
+            log(f"encoder {rows[-1]}")
+        del params
+    torch.cuda.empty_cache()
+    return rows
+
+
+# Qwen/Qwen2.5-3B-Instruct's published config (the reference sidecar's
+# answer model), max_len capped at 4,096 as hf_loader caps it
+QWEN25_3B = dict(vocab_size=151936, hidden=2048, layers=36, heads=16,
+                 kv_heads=2, mlp=11008, max_len=4096, rope_theta=1e6,
+                 rms_eps=1e-6)
+# f32 cached decode against the f32 full forward at that width: relative
+# L2 of the last position's logits (the CPU tests hold 1e-5 at 2 layers)
+DECODER_REL_TOL = 1e-4
+
+
+def decoder_width(prompt=512, new=64):
+    """The decoder at Qwen2.5-3B's width, batch 1, seeded bf16 weights
+    made on the card (q/k/v biases, lm_head tied to the embeddings as f32):
+    prefill ms of a 512-token prompt, decode ms per token over 64 greedy
+    tokens through ``generate`` (host clock, synchronised) against the
+    bytes one token must read, GiB on the card, and the cached decode's
+    logits against a full forward in f32 (tests/test_llm.py's check)."""
+    import torch
+
+    from orama_core_tpu_torch.models import llm
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    cfg = llm.LlmConfig(**QWEN25_3B)
+    g = torch.Generator("cuda").manual_seed(0)
+    params = llm.init_params(cfg, g, "cuda")
+    hd = cfg.head_dim
+    for layer in params["layers"]:
+        for name, width in (("bq", cfg.heads), ("bk", cfg.kv_heads),
+                            ("bv", cfg.kv_heads)):
+            layer[name] = (torch.randn(width * hd, generator=g, device="cuda")
+                           * 0.02).to(cfg.dtype)
+    params["lm_head"] = None  # free the drawn head before tying it
+    params["lm_head"] = params["tok_emb"].float().t().contiguous()
+    torch.cuda.synchronize()
+    weight_bytes = sum(
+        t.numel() * t.element_size() for t in
+        [params["tok_emb"], params["out_norm"], params["lm_head"]]
+        + [v for layer in params["layers"] for v in layer.values()])
+    gen = torch.Generator("cuda").manual_seed(1)
+    ids = torch.randint(0, 151643, (1, prompt), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    plen = torch.tensor([prompt], dtype=torch.int32)
+    eos = cfg.vocab_size  # never drawn: every run decodes all its tokens
+
+    def run(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = llm.generate(params, cfg, ids, plen, max_new=n, eos_id=eos)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, toks
+
+    run(2)  # first-use allocations
+    prefill = min(run(1)[0] for _ in range(3))
+    full_ms, toks = run(new + 1)
+    decode = (full_ms - prefill) / new
+    require(toks.shape == (1, new + 1) and bool((toks < eos).all()),
+            "decoder: bad tokens")
+    peak_gib = (torch.cuda.max_memory_allocated() - base_mem) / 2**30
+    # two bounds each. "as computed": the work the port (as the reference)
+    # does -- a decode step reads every weight, the f32 lm_head and the
+    # whole 4,096-slot cache; prefill takes f32 logits over the whole cache
+    # and the f32 lm_head at every prompt position. "needed": the work the
+    # answer needs -- a decode step reads the bf16 weights with the head as
+    # the bf16 embeddings and the cache's live positions (prompt + new / 2
+    # on average over the run); prefill attends the causal prompt pairs and
+    # takes the head at the last position only
+    emb_bytes = params["tok_emb"].numel() * params["tok_emb"].element_size()
+    head_bytes = params["lm_head"].numel() * params["lm_head"].element_size()
+    kv_slot_bytes = 2 * cfg.layers * cfg.kv_heads * hd * 2
+    decode_bound = ((weight_bytes - emb_bytes + kv_slot_bytes * cfg.max_len)
+                    / HBM_BYTES_PER_S * 1e3)
+    decode_needed_bound = ((weight_bytes - head_bytes
+                            + kv_slot_bytes * (prompt + new / 2))
+                           / HBM_BYTES_PER_S * 1e3)
+    layer_flops = 2.0 * prompt * cfg.layers * (
+        2 * cfg.hidden * cfg.hidden + 2 * cfg.hidden * cfg.kv_heads * hd
+        + 3 * cfg.hidden * cfg.mlp)
+    attn_flops = 2.0 * prompt * cfg.max_len * cfg.hidden * cfg.layers
+    head_flops = 2.0 * prompt * cfg.hidden * cfg.vocab_size
+    prefill_bound = ((layer_flops + attn_flops) / BF16_FLOPS
+                     + (attn_flops + head_flops) / F32_FLOPS) * 1e3
+    causal_flops = 2.0 * (prompt * (prompt + 1) / 2) * cfg.hidden * cfg.layers
+    prefill_needed_bound = max(
+        ((layer_flops + causal_flops) / BF16_FLOPS
+         + (causal_flops + head_flops / prompt) / F32_FLOPS) * 1e3,
+        (weight_bytes - head_bytes) / HBM_BYTES_PER_S * 1e3)
+
+    # cached decode's last-position logits against a full forward, both in
+    # f32 (TF32 off), so that bf16 rounding cannot hide a cache fault
+    f32 = llm.LlmConfig(**{**QWEN25_3B, "dtype": torch.float32})
+    exact = llm.params_from_numpy(params, f32, "cuda")
+    del params
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        cache = llm.make_cache(f32, 1, "cuda")
+        pos = torch.arange(prompt, dtype=torch.int32, device="cuda")[None]
+        llm.forward(exact, f32, ids, pos, cache, 0)
+        step = toks[:, :1]
+        cached, _ = llm.forward(exact, f32, step, pos[:, -1:] + 1, cache,
+                                prompt)
+        seq = torch.cat([ids, step], dim=1)
+        full, _ = llm.forward(exact, f32, seq, torch.arange(
+            prompt + 1, dtype=torch.int32, device="cuda")[None], None, 0)
+    c_, f_ = cached[0, -1], full[0, -1]
+    diff = float((c_ - f_).abs().max())
+    scale = float(f_.abs().max())
+    rel = float(torch.linalg.vector_norm(c_ - f_) / torch.linalg.vector_norm(f_))
+    same_argmax = bool(c_.argmax() == f_.argmax())
+    require(bool(torch.isfinite(cached).all()) and rel <= DECODER_REL_TOL
+            and same_argmax,
+            f"decoder: f32 cached vs full logits: relative L2 {rel} (limit "
+            f"{DECODER_REL_TOL}), max abs {diff} (scale {scale}), argmax "
+            f"equal {same_argmax}")
+    del exact, cache, cached, full
+    torch.cuda.empty_cache()
+    rec = {"config": "Qwen/Qwen2.5-3B-Instruct width", **QWEN25_3B,
+           "dtype": "bfloat16", "prompt": prompt, "new_tokens": new,
+           "prefill_ms": prefill, "prefill_bound_ms": prefill_bound,
+           "prefill_needed_bound_ms": prefill_needed_bound,
+           "decode_ms_per_token": decode, "decode_bound_ms": decode_bound,
+           "decode_needed_bound_ms": decode_needed_bound,
+           "weight_gib": weight_bytes / 2**30, "peak_gib": peak_gib,
+           "f32_cached_vs_full_rel_l2": rel,
+           "f32_cached_vs_full_max_abs": diff, "logit_scale": scale,
+           "argmax_equal": same_argmax}
+    log(f"decoder {rec}")
+    return rec
+
+
+def phase_serve(card):
+    """This slice's phase: the server, the semantic checkpoint, encoder
+    throughput and the decoder at full width. Returns the ``{"serve": ...}``
+    record and the phase's kernel launches."""
+    t0 = time.perf_counter()
+    rec = serve_http()
+    rec["semantic"] = serve_semantic()
+    rec["encoder"] = encoder_throughput()
+    rec["decoder"] = decoder_width()
+    rec["wall_s"] = time.perf_counter() - t0
+    return rec, rec["launches"]
+
+
 def main() -> int:
     import torch
 
@@ -1922,6 +2418,10 @@ def main() -> int:
         phase_build_orama(name)
     batcher = phase_batcher()
     print(json.dumps({"batcher": batcher, "card": card}), flush=True)
+    serve, serve_launches = phase_serve(card)
+    for rec in records:
+        rec["launches"] += serve_launches[rec["name"]]
+    print(json.dumps({"serve": serve, "card": card}), flush=True)
     print(json.dumps({"p50_ms": p50, "card": card}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": records}), flush=True)

@@ -18,9 +18,14 @@ the caller passes ``device="cpu"`` (or sets ``cfg.gpu.device``); on the CPU
 every kernel runs as its plain torch version. Nothing falls back from the
 card to the CPU.
 
+With ``ai.backend = "jax"`` passages and queries embed with the port's
+transformer encoder and answers decode with its LLM, on the same device
+(``models/``); ``python -m orama_core_tpu_torch`` serves the HTTP API
+(``server/http.py``).
+
 Not ported yet (each raises ``NotImplementedError``): a gRPC model
 sidecar (``ai.grpc_port``), a remote model backend (``ai.remote_url``),
-hooks, the jax encoder/LLM backend, and mesh sharding.
+hook installs, and mesh sharding.
 """
 
 from __future__ import annotations
@@ -61,7 +66,7 @@ class Orama:
                 "device 'cuda' requested but no CUDA device is available; "
                 "pass device='cpu' to run the plain torch versions"
             )
-        self.ai = AIService(cfg.ai)
+        self.ai = AIService(cfg.ai, device=cfg.gpu.device)
         tx, rx = channel(cfg.writer_side.channel_capacity)
         from .engine.hooks import HooksRuntime
         import os as _os

@@ -90,7 +90,9 @@ class AiConfig:
     ``backend``:
       - "fake": deterministic hash-projection embedder (tests/CI; plays the
         role of the reference's in-process fake AI server, test_utils.rs:96-133)
-      - "jax": the reference's in-process encoder; not ported yet (raises)
+      - "jax": the in-process transformer encoder and LLM decoder
+        (models/encoder.py, models/llm.py), on ``gpu.device``; the name is
+        the reference's, kept so its configuration files load
     """
 
     backend: str = "fake"

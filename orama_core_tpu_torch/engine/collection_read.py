@@ -2406,6 +2406,40 @@ class CollectionReader:
         self._alive_mask_device()
         return n
 
+    # -- cross-slice global statistics (multislice DFS mode) ------------------
+
+    def export_term_stats(self) -> Dict[str, Any]:
+        """Per-string-field committed statistics for the multi-slice
+        global-idf exchange: terms + df arrays + (n_docs, total_len).
+        Commit-static — call after commit; uncommitted windows excluded."""
+        out: Dict[str, Any] = {}
+        for fid, sf in self._string.items():
+            c = sf.committed
+            if c.n_terms == 0:
+                continue
+            out[self.fields[fid].name] = {
+                "terms": list(c.term_dict.terms),
+                "df": np.diff(c.term_starts).astype(np.float32).tolist(),
+                "n_docs": int(c.n_docs_with_field),
+                "total_len": int(c.total_len),
+            }
+        return out
+
+    def apply_global_stats(self, stats: Dict[str, Any]) -> None:
+        """Install merged cross-slice statistics; invalidates the affected
+        device caches so the next query scores with global idf."""
+        for name, s in stats.items():
+            fid = self.field_by_name.get(name)
+            if fid is None or fid not in self._string:
+                continue
+            c = self._string[fid].committed
+            if c.n_terms == 0:
+                continue
+            c.set_stats_override(
+                dict(zip(s["terms"], s["df"])), s["n_docs"], s["total_len"]
+            )
+            self._device.drop(c)
+
     # -- facets (reference: collection.rs:1004-1126) --------------------------
 
     def compute_facets(

@@ -287,6 +287,14 @@ class ReadSide:
     def count_documents(self, collection_id: str) -> int:
         return self._reader(collection_id).doc_count
 
+    def export_term_stats(self, collection_id: str) -> Dict[str, Any]:
+        return self._reader(collection_id).export_term_stats()
+
+    def apply_global_stats(
+        self, collection_id: str, stats: Dict[str, Any]
+    ) -> None:
+        self._reader(collection_id).apply_global_stats(stats)
+
     def get_document_by_user_id(
         self, collection_id: str, user_id: str
     ) -> Optional[Dict[str, Any]]:

@@ -10,10 +10,13 @@ a remote backend could be swapped in.
 Backends:
 - "fake": deterministic hash-projection embedder + canned LLM (tests/CI)
 - "jax":  models/encoder.py transformer encoder (random or HF-loaded
-          weights) and models/llm.py decoder for chat
+          weights) and models/llm.py decoder for chat (the reference's
+          backend name, kept so its configuration files load)
 
 Port of ``orama_core_tpu/models/ai_service.py``: host code, copied with its imports
-re-pointed at ``orama_core_tpu_torch``.
+re-pointed at ``orama_core_tpu_torch``. The service also takes the device
+the models run on (``cfg.gpu.device`` in ``build_orama``): the embedding
+loop's thread and the read side's threads then name the same card.
 """
 
 from __future__ import annotations
@@ -29,8 +32,9 @@ from .registry import model_info
 
 
 class AIService:
-    def __init__(self, cfg: Optional[AiConfig] = None) -> None:
+    def __init__(self, cfg: Optional[AiConfig] = None, device: str = "cuda") -> None:
         self.cfg = cfg or AiConfig()
+        self.device = device
         self._lock = threading.Lock()
         self._embedders: Dict[str, object] = {}
         self._llm: Optional[object] = None
@@ -72,12 +76,54 @@ class AIService:
             return self._embedders.setdefault(model, e)
 
     def _jax_embedder(self, model: str, info):
-        """The reference's in-process transformer encoder
-        (ai_service.py:71-121) is not ported yet: no encoder runs in
-        this package."""
-        raise NotImplementedError(
-            "backend='jax': the encoder is a later port slice"
+        """Transformer forward when a real checkpoint is on disk; otherwise
+        the documented fallback ladder: ``jax-*`` registry entries keep the
+        random-init encoder (compile/perf paths), pretrained-family names
+        (bge/e5) degrade to the deterministic lexical embedder — random
+        transformer weights would rank by noise (models/lexical.py)."""
+        import logging
+
+        from .encoder import EncoderEmbedder
+
+        ckpt = self._resolve_checkpoint(model)
+        if ckpt is not None:
+            from .hf_loader import load_encoder_checkpoint, load_encoder_tokenizer
+
+            loaded = load_encoder_checkpoint(ckpt)
+            if loaded is not None:
+                cfg, params = loaded
+                tok = load_encoder_tokenizer(ckpt, cfg.max_len)
+                if tok is None:
+                    # real weights + the hash tokenizer = confident noise
+                    # (blake2b buckets bear no relation to the trained
+                    # vocab). Refuse the pairing; fall through to lexical.
+                    logging.getLogger("oramax.ai").warning(
+                        "checkpoint %s has weights but no loadable "
+                        "tokenizer files — refusing to pair pretrained "
+                        "weights with the hash tokenizer; using the "
+                        "lexical fallback", ckpt,
+                    )
+                else:
+                    if cfg.out_dim != info.dim:
+                        logging.getLogger("oramax.ai").warning(
+                            "checkpoint %s dim %d != registry dim %d for %s",
+                            ckpt, cfg.out_dim, info.dim, model,
+                        )
+                    return EncoderEmbedder(
+                        model, cfg=cfg, params=params, tokenizer=tok,
+                        device=self.device,
+                    )
+        if model.startswith("jax"):
+            return EncoderEmbedder(model, device=self.device)
+        logging.getLogger("oramax.ai").warning(
+            "no checkpoint for %s (embedding_checkpoint_path=%r) — using the "
+            "lexical fallback embedder; run scripts/prepare_checkpoint.py for "
+            "pretrained weights",
+            model, getattr(self.cfg, "embedding_checkpoint_path", None),
         )
+        from .lexical import LexicalEmbedder
+
+        return LexicalEmbedder(info.dim)
 
     def embed_query(self, model: str, texts: Sequence[str]) -> np.ndarray:
         """[len(texts), dim] float32 (intent prefix per model registry;
@@ -118,8 +164,13 @@ class AIService:
         if llm is not None:
             return llm
         if self.cfg.backend == "jax" and self.cfg.llm_model != "fake-llm":
-            raise NotImplementedError(
-                "backend='jax': the LLM is a later port slice"
+            from .llm import ChatLLM
+
+            llm = ChatLLM(
+                self.cfg.llm_model,
+                self.cfg.hf_model_path,
+                temperature=getattr(self.cfg, "llm_temperature", 0.0),
+                device=self.device,
             )
         else:
             llm = FakeLLM()

@@ -102,3 +102,76 @@ def test_ann_commit_on_cpu_loads_no_jax(tmp_path):
     )
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip().endswith("ok")
+
+
+def test_entry_point_and_server_on_cpu_load_no_jax(tmp_path):
+    """``python -m orama_core_tpu_torch --help`` and the entry point's
+    server, started on the CPU with ``ai.backend = "jax"`` (the port's
+    encoder and decoder), answer without JAX in the process."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.dirname(PKG) + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    out = subprocess.run(
+        [sys.executable, "-m", "orama_core_tpu_torch", "--help"], cwd=tmp_path,
+        env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "--config" in out.stdout and "orama_core_tpu_torch" in out.stdout
+
+    code = (
+        "import json, os, socket, sys, threading, time, urllib.request\n"
+        "from orama_core_tpu_torch.__main__ import main\n"
+        "s = socket.socket(); s.bind(('127.0.0.1', 0))\n"
+        "port = s.getsockname()[1]; s.close()\n"
+        "threading.Thread(target=main, args=(['--port', str(port)],),\n"
+        "                 daemon=True).start()\n"
+        "base = f'http://127.0.0.1:{port}'\n"
+        "def req(path, body=None, bearer=None):\n"
+        "    h = {'Content-Type': 'application/json'}\n"
+        "    if bearer: h['Authorization'] = 'Bearer ' + bearer\n"
+        "    data = json.dumps(body).encode() if body is not None else None\n"
+        "    r = urllib.request.Request(base + path, data=data, headers=h,\n"
+        "                               method='POST' if data else 'GET')\n"
+        "    with urllib.request.urlopen(r, timeout=60) as f:\n"
+        "        return f.status, f.read()\n"
+        "for _ in range(600):\n"
+        "    try:\n"
+        "        assert req('/health')[0] == 200; break\n"
+        "    except OSError:\n"
+        "        time.sleep(0.1)\n"
+        "req('/v1/collections/create', {'id': 'c', 'read_api_key': 'r',\n"
+        "    'write_api_key': 'w'}, 'master')\n"
+        "for _ in range(600):\n"
+        "    try:\n"
+        "        req('/v1/collections/c/insert', [{'id': '1', 'body': 'hello "
+        "world'}], 'w'); break\n"
+        "    except urllib.error.HTTPError:\n"
+        "        time.sleep(0.1)\n"
+        "for _ in range(600):\n"
+        "    st, raw = req('/v1/collections/c/search?api-key=r',\n"
+        "                  {'term': 'hello', 'mode': 'vector'})\n"
+        "    if json.loads(raw)['count'] == 1: break\n"
+        "    time.sleep(0.1)\n"
+        "assert json.loads(raw)['count'] == 1, raw\n"
+        "assert req('/health/ai')[0] == 200\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'orama_core_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok', flush=True)\n"
+        "os._exit(0)\n"
+    )
+    env.update({
+        "ORAMAX_gpu__device": "cpu",
+        "ORAMAX_ai__backend": "jax",
+        "ORAMAX_ai__embedding_model": "jax-minilm",
+        "ORAMAX_writer_side__default_embedding_model": "jax-minilm",
+        "ORAMAX_ai__llm_model": "jax-tiny",
+        "ORAMAX_writer_side__data_dir": str(tmp_path / "w"),
+        "ORAMAX_reader_side__data_dir": str(tmp_path / "r"),
+    })
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().endswith("ok")
