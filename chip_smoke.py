@@ -90,7 +90,20 @@ each of fulltext, phrase, vector, hybrid RRF and chunked vector over HTTP
 (K1-K4, K6), each held against the in-process ``read_side.search`` (p50
 of both); one answer and one planned-answer stream in the reference's
 event order; the card's passage embeddings against the plain CPU encoder
-on the same parameters (cosine >= 0.999); ``tests/assets/tiny-semantic``
+on the same parameters (cosine >= 0.999); the hooks step (under the
+line's ``"hooks"`` key): 5,000 one-row documents (a unique ``ref``
+token, ``kind``, title, summary, tags, body) inserted over HTTP into a
+collection without a hook and then into
+one with a dynamic ``selectEmbeddingProperties`` hook installed over
+``hooks/create`` (a branch, a template literal, an array method, a throw
+that vetoes 16 documents), the hook's host ms per document (in ingest
+and alone) and both ingests' passages/s; 64 sampled stored vectors
+against the plain CPU encoder on the text the port's MiniJS selects
+(cosine >= 0.999), the vetoed documents stored and fulltext-searchable
+with no vector row, 32 vector queries on the hooked text (the document
+first; K2, K3) and 32 fulltext queries (K1), each over HTTP and in
+process with equal hits, and after ``hooks/remove`` a new document
+embedded from its default text; ``tests/assets/tiny-semantic``
 loaded on the card by the port's own reader and tokenizer, ranking
 tests/test_semantic_e2e.py's four queries; encoder throughput at the
 jax-minilm and bge-small widths for 64 x 128 and 64 x 512 tokens against
@@ -1894,6 +1907,301 @@ def _vector_docs(reader):
     return live | set(vf.committed.vec_docs.tolist()), live
 
 
+# The hooks step: a dynamic selectEmbeddingProperties hook (a branch, a
+# template literal, an array method, a throw) on a jax-minilm collection of
+# 5,000 one-row documents, which takes vector queries through the fused kNN
+# (CollectionReader._vector_fast_field: at least 4,096 committed rows).
+HOOK_NAME = "selectEmbeddingProperties"
+HOOK_CODE = """
+function selectEmbeddingProperties(doc) {
+  if (doc.kind === "faq") {
+    return `${doc.title}: ${doc.tags.join(", ")}`;
+  }
+  if (doc.kind === "bad") {
+    throw "vetoed " + doc.id;
+  }
+  return ["title", "summary"];
+}
+"""
+HOOK_DOCS, HOOK_BAD, HOOK_BATCH = 5000, 16, 500
+
+
+def _hooked_docs(rng, vocab, zipf, n=HOOK_DOCS, n_bad=HOOK_BAD):
+    """About half ``faq`` and half other documents, ``n_bad`` of them
+    ``bad`` (spread evenly); ``ref`` is a token unique to each."""
+    bad = set(range(7, n, n // n_bad)[:n_bad])
+    return [{
+        "id": f"h{i}",
+        "ref": f"ref{i:05d}",
+        "kind": "bad" if i in bad else ("faq" if rng.random() < 0.5
+                                        else "other"),
+        "title": " ".join(rng.choice(vocab, 3, p=zipf)),
+        "summary": " ".join(rng.choice(vocab, int(rng.integers(4, 12)),
+                                       p=zipf)),
+        "tags": [str(t) for t in rng.choice(vocab, int(rng.integers(1, 4)),
+                                            p=zipf)],
+        "body": " ".join(rng.choice(vocab, int(rng.integers(5, 30)), p=zipf)),
+    } for i in range(n)]
+
+
+def _embedding_text(doc, override):
+    """The write side's own rule (collection_write.embedding_text) on the
+    document as the write path stores it; the field has no configured
+    sources, so a document without an override embeds every string value
+    in document order."""
+    from orama_core_tpu_torch.engine.collection_write import (
+        embedding_text, flatten_document)
+
+    flat = flatten_document(doc)
+    strings = []
+    for k, v in flat.items():
+        if k == "id":
+            continue
+        if isinstance(v, str):
+            strings.append(v)
+        elif isinstance(v, list) and all(isinstance(x, str) for x in v):
+            strings.extend(v)
+    return embedding_text(flat, override, (), strings)
+
+
+def _ingest(base, side, cid, docs, n_vec, what):
+    """Create ``cid``, insert ``docs`` over HTTP in batches, and wait until
+    every document is stored and ``n_vec`` of them have committed vector
+    rows. Returns (HTTP send seconds, wall seconds)."""
+    t0 = time.perf_counter()
+    for lo in range(0, len(docs), HOOK_BATCH):
+        st, res = _http(base, "POST", f"/v1/collections/{cid}/insert",
+                        docs[lo:lo + HOOK_BATCH], "wk")
+        require(st == 200, f"{what}: insert {cid}: {st} {res}")
+    t_sent = time.perf_counter() - t0
+    deadline = time.perf_counter() + 300
+    while True:
+        try:
+            have, live = _vector_docs(side._reader(cid))
+            ready = (len(have) == n_vec and not live
+                     and side.count_documents(cid) == len(docs))
+        except (KeyError, StopIteration):
+            ready = False
+        if ready:
+            return t_sent, time.perf_counter() - t0
+        require(time.perf_counter() < deadline,
+                f"{what}: {cid} not searchable after 300 s")
+        time.sleep(0.05)
+
+
+def _stored_vectors(side, cid, uids):
+    """The card's stored vector row of each user id (None: no row)."""
+    reader = side._reader(cid)
+    vf = next(iter(reader._vector.values()))
+    vecs, vec_docs, _ = reader._device.vector_arrays(vf.committed)
+    docs = vec_docs[:vf.committed.n_vectors].cpu().numpy()
+    row_of = {int(d): r for r, d in enumerate(docs)}
+    storage = side.doc_storage[cid]
+    out = []
+    for uid in uids:
+        r = row_of.get(storage.doc_id_of(uid))
+        out.append(None if r is None else vecs[r].float().cpu().numpy())
+    return out
+
+
+def _cosines(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return (a * b).sum(-1) / (np.linalg.norm(a, axis=-1)
+                              * np.linalg.norm(b, axis=-1))
+
+
+def serve_hooks(base, orama, cpu, rng, vocab, zipf, n_queries=32):
+    """The hooks step, on the serve phase's server: install a dynamic
+    hook over HTTP, ingest 5,000 documents through it, check the stored
+    vectors against the plain CPU encoder on the text the hook selected,
+    the vetoed documents, vector and fulltext queries over HTTP against
+    in-process, and the default text after the hook is removed. Returns
+    the ``"hooks"`` record and the step's kernel launches."""
+    from orama_core_tpu_torch.engine.minijs import MiniJsThrow, run_hook
+    from orama_core_tpu_torch.ops import _cuda
+    from orama_core_tpu_torch.types import SearchParams
+
+    t_step = time.perf_counter()
+    side = orama.read_side
+    docs = _hooked_docs(rng, vocab, zipf)
+    n_bad = sum(d["kind"] == "bad" for d in docs)
+    for cid in ("unhooked", "hooked"):
+        st, _ = _http(base, "POST", "/v1/collections/create",
+                      {"id": cid, "read_api_key": "rk", "write_api_key": "wk",
+                       "embeddings": {"model": "jax-minilm"}}, "master")
+        require(st == 201, f"hooks: create {cid}: {st}")
+    _cuda.reset_launches()
+    # the same documents without a hook: every one embeds all its strings
+    plain_sent, plain_s = _ingest(base, side, "unhooked", docs, len(docs),
+                                  "hooks")
+    st, res = _http(base, "POST", "/v1/collections/hooked/hooks/create",
+                    {"name": HOOK_NAME, "code": HOOK_CODE}, "wk")
+    require(st == 200 and res == {"ok": True},
+            f"hooks: create hook: {st} {res}")
+    st, res = _http(base, "GET", "/v1/collections/hooked/hooks/list",
+                    bearer="wk")
+    require(st == 200 and res == {HOOK_NAME: HOOK_CODE},
+            f"hooks: list: {st} {res}")
+    st, res = _http(base, "GET", f"/v1/hooked/hooks/get?name={HOOK_NAME}",
+                    bearer="wk")
+    require(st == 200 and res.get("code") == HOOK_CODE,
+            f"hooks: get: {st} {res}")
+
+    # a host clock around HooksRuntime.eval as the write path calls it
+    hook_s = []
+    real_eval = orama.hooks.eval
+
+    def timed_eval(*args):
+        t1 = time.perf_counter()
+        try:
+            return real_eval(*args)
+        finally:
+            hook_s.append(time.perf_counter() - t1)
+
+    orama.hooks.eval = timed_eval
+    try:
+        hooked_sent, hooked_s = _ingest(base, side, "hooked", docs,
+                                        len(docs) - n_bad, "hooks")
+    finally:
+        del orama.hooks.eval
+    require(len(hook_s) == len(docs),
+            f"hooks: eval ran {len(hook_s)} times for {len(docs)} documents")
+    rows = {cid: next(iter(side._reader(cid)._vector.values()))
+            .committed.n_vectors for cid in ("unhooked", "hooked")}
+
+    # the text the hook selected, by the port's MiniJS on the CPU
+    texts = {}
+    for d in docs:
+        try:
+            sel = run_hook(HOOK_CODE, HOOK_NAME, dict(d))
+        except MiniJsThrow:
+            continue
+        texts[d["id"]] = _embedding_text(d, sel)
+    require(len(texts) == len(docs) - n_bad,
+            f"hooks: {len(docs) - len(texts)} documents vetoed, "
+            f"want {n_bad}")
+    kinds = {k: sum(d["kind"] == k for d in docs)
+             for k in ("faq", "other", "bad")}
+
+    # (a) stored vectors against the plain CPU encoder on those texts
+    ids = [str(u) for u in rng.choice(sorted(texts), 64, replace=False)]
+    stored = _stored_vectors(side, "hooked", ids)
+    require(all(v is not None for v in stored),
+            "hooks: a sampled document has no vector row")
+    want = cpu.embed(["passage: " + texts[u] for u in ids])
+    cos = _cosines(np.stack(stored), want)
+    require(float(cos.min()) >= 0.999,
+            f"hooks: stored vs CPU encoder cosine {float(cos.min())}")
+
+    # (b) the vetoed documents: stored, fulltext-searchable, no vector row
+    bad = [d for d in docs if d["kind"] == "bad"]
+    require(all(v is None for v in
+                _stored_vectors(side, "hooked", [d["id"] for d in bad])),
+            "hooks: a vetoed document has a vector row")
+    for d in bad:
+        require(side.get_document_by_user_id("hooked", d["id"]) is not None,
+                f"hooks: vetoed document {d['id']} not stored")
+
+    # (c) vector queries on the hooked text, (d) fulltext queries: over
+    # HTTP and in process, the same hits
+    queried = [str(u) for u in rng.choice(sorted(texts), n_queries,
+                                          replace=False)]
+    bodies = {
+        "vector": [({"term": texts[u], "mode": "vector"}, u)
+                   for u in queried],
+        "fulltext": [({"term": d["ref"], "mode": "fulltext"}, d["id"])
+                     for d in bad]
+        + [({"term": " ".join(rng.choice(vocab, 2, p=zipf)),
+             "mode": "fulltext"}, None)
+           for _ in range(n_queries - len(bad))],
+    }
+    p50 = {}
+    for mode, cases in bodies.items():
+        lat_http, lat_proc = [], []
+        for body, first in cases:
+            t1 = time.perf_counter()
+            st, res = _http(base, "POST",
+                            "/v1/collections/hooked/search?api-key=rk", body)
+            lat_http.append((time.perf_counter() - t1) * 1e3)
+            require(st == 200, f"hooks {mode} {body}: {st} {res}")
+            t1 = time.perf_counter()
+            got = side.search("hooked", SearchParams.from_json(body), "rk")
+            lat_proc.append((time.perf_counter() - t1) * 1e3)
+            check_hits([(h["id"], h["score"]) for h in res["hits"]],
+                       [(h.id, h.score) for h in got.hits], 1e-5,
+                       f"hooks {mode} HTTP vs in-process {body}")
+            require(res["count"] == got.count,
+                    f"hooks {mode} {body}: count {res['count']} vs "
+                    f"{got.count}")
+            if first is not None:
+                require(res["hits"] and res["hits"][0]["id"] == first,
+                        f"hooks {mode} {body}: first hit "
+                        f"{res['hits'][:1]}, want {first}")
+        p50[mode] = {"http": float(np.percentile(lat_http, 50)),
+                     "in_process": float(np.percentile(lat_proc, 50))}
+    launches = dict(_cuda.LAUNCHES)
+    # (e) the hooked collection's queries ran K1, K2 and K3
+    for name in ("bm25_scan", "knn_subblock_max", "knn_rescore"):
+        require(launches[name] > 0, f"hooks: {name} never ran")
+
+    # (f) after the hook is removed, a new document embeds its default text
+    st, _ = _http(base, "POST", "/v1/hooked/hooks/remove",
+                  {"name": HOOK_NAME}, "wk")
+    require(st == 200, f"hooks: remove: {st}")
+    st, res = _http(base, "GET", "/v1/hooked/hooks/list", bearer="wk")
+    require(st == 200 and res == {}, f"hooks: list after remove: {res}")
+    late = dict(docs[1], id="late", ref="ref99999", kind="faq")
+    st, res = _http(base, "POST", "/v1/collections/hooked/insert", [late],
+                    "wk")
+    require(st == 200, f"hooks: insert after remove: {st} {res}")
+    deadline = time.perf_counter() + 60
+    while True:
+        (vec,) = _stored_vectors(side, "hooked", ["late"])
+        if vec is not None:
+            break
+        require(time.perf_counter() < deadline,
+                "hooks: the document inserted after remove has no vector")
+        time.sleep(0.05)
+    late_cos = float(_cosines(
+        vec, cpu.embed(["passage: " + _embedding_text(late, None)])[0]))
+    require(late_cos >= 0.999,
+            f"hooks: default-text vector cosine {late_cos} after remove")
+
+    # the hook alone, outside ingest: one clock around each eval
+    st, _ = _http(base, "POST", "/v1/collections/hooked/hooks/create",
+                  {"name": HOOK_NAME, "code": HOOK_CODE}, "wk")
+    require(st == 200, f"hooks: re-create: {st}")
+    alone = []
+    for d in docs:
+        t1 = time.perf_counter()
+        try:
+            orama.hooks.eval("hooked", HOOK_NAME, d)
+        except RuntimeError:
+            pass
+        alone.append(time.perf_counter() - t1)
+    orama.hooks.delete_hook("hooked", HOOK_NAME)
+
+    rec = {
+        "docs": len(docs), "kinds": kinds, "vector_rows": rows,
+        "hook_ms_per_doc_in_ingest": 1e3 * sum(hook_s) / len(hook_s),
+        "hook_ms_per_doc_p50_in_ingest": 1e3 * float(np.percentile(hook_s,
+                                                                   50)),
+        "hook_ms_per_doc_alone": 1e3 * sum(alone) / len(alone),
+        "ingest": {
+            "hooked": {"http_send_s": hooked_sent, "wall_s": hooked_s,
+                       "passages_per_s": rows["hooked"] / hooked_s},
+            "unhooked": {"http_send_s": plain_sent, "wall_s": plain_s,
+                         "passages_per_s": rows["unhooked"] / plain_s},
+        },
+        "encoder_cpu_cosine_min": float(cos.min()),
+        "default_text_cosine_after_remove": late_cos,
+        "p50_ms": p50, "launches": launches,
+        "wall_s": time.perf_counter() - t_step,
+    }
+    log(f"serve hooks: {rec}")
+    return rec, launches
+
+
 def serve_http(n_queries=32, seed=17):
     """``python -m orama_core_tpu_torch``'s server in-process on the card:
     ingest over HTTP until every doc is committed with its vectors, then
@@ -2056,6 +2364,12 @@ def serve_http(n_queries=32, seed=17):
         require(float(cos.min()) >= 0.999,
                 f"serve: card vs CPU encoder cosine {float(cos.min())}")
         out["encoder_cpu_cosine_min"] = float(cos.min())
+
+        out["hooks"], hook_launches = serve_hooks(base, orama, cpu, rng,
+                                                  vocab, zipf)
+        out["hooks"]["card"] = card_line()
+        for k, v in hook_launches.items():
+            out["launches"][k] += v
         del cpu
     finally:
         server.stop()

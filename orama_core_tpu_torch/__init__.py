@@ -23,9 +23,12 @@ transformer encoder and answers decode with its LLM, on the same device
 (``models/``); ``python -m orama_core_tpu_torch`` serves the HTTP API
 (``server/http.py``).
 
-Not ported yet (each raises ``NotImplementedError``): a gRPC model
-sidecar (``ai.grpc_port``), a remote model backend (``ai.remote_url``),
-hook installs, and mesh sharding.
+``selectEmbeddingProperties`` hooks run on the bundled MiniJS interpreter
+(``engine/hooks.py``, ``engine/minijs.py``). ``ai.remote_url`` takes the
+models from a gRPC sidecar (``rpc.RemoteAIService``) and ``ai.grpc_port``
+serves this engine's models as one (``rpc.serve_ai``); ``rpc`` needs
+``grpcio`` and ``protobuf`` and is imported only when one of the two is
+set. Not ported yet (raises ``NotImplementedError``): mesh sharding.
 """
 
 from __future__ import annotations
@@ -57,16 +60,21 @@ class Orama:
     def __init__(self, cfg: OramaxConfig, start_background: bool = True) -> None:
         configure_torch()
         self.cfg = cfg
-        if cfg.ai.remote_url:
-            raise NotImplementedError("ai.remote_url: a later port slice")
-        if cfg.ai.grpc_port is not None:
-            raise NotImplementedError("ai.grpc_port: a later port slice")
         if cfg.gpu.device.startswith("cuda") and not torch.cuda.is_available():
             raise RuntimeError(
                 "device 'cuda' requested but no CUDA device is available; "
                 "pass device='cpu' to run the plain torch versions"
             )
-        self.ai = AIService(cfg.ai, device=cfg.gpu.device)
+        if cfg.ai.remote_url:
+            # the models run on the sidecar; search still runs on
+            # cfg.gpu.device. A missing grpc raises here, naming the
+            # package: never serve the in-process models in its place.
+            from .rpc import RemoteAIService
+
+            self.ai = RemoteAIService(cfg.ai.remote_url)
+        else:
+            self.ai = AIService(cfg.ai, device=cfg.gpu.device)
+        self._grpc_server = None
         tx, rx = channel(cfg.writer_side.channel_capacity)
         from .engine.hooks import HooksRuntime
         import os as _os
@@ -90,6 +98,28 @@ class Orama:
                 self.write_side.absorb_replayed(stamped)
             tx.set_offset(
                 max(tx.offset, self.wal.last_offset, self.read_side._applied_offset)
+            )
+        # model sidecar server LAST: it serves PlannedAnswer against
+        # read_side, which must exist before a client's first call
+        if cfg.ai.grpc_port is not None and not cfg.ai.remote_url:
+            from .rpc import serve_ai
+
+            def _planner(text, collection_id, messages):
+                # serve PlannedAnswer like the reference sidecar does
+                # (ai_server planned_answer); engine-side steps run here
+                import json as _json
+
+                from .engine.answer import PartyPlanner
+
+                for ev in PartyPlanner(self.read_side).run(
+                    collection_id, text, conversation=messages, skip_auth=True
+                ):
+                    yield _json.dumps(ev), False
+                yield "", True
+
+            self._grpc_server, self.grpc_port = serve_ai(
+                self.ai, port=cfg.ai.grpc_port, planner=_planner,
+                host=cfg.ai.grpc_host,
             )
         self._stop = threading.Event()
         self._threads = []
@@ -167,6 +197,10 @@ class Orama:
         self._stop.set()
         for t in self._threads:
             t.join(timeout=2.0)
+        if self._grpc_server is not None:
+            self._grpc_server.stop(grace=1.0)
+        if hasattr(self.ai, "close"):
+            self.ai.close()
         self.read_side.close()
 
 

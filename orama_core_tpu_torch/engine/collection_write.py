@@ -12,7 +12,9 @@ directly (types.py) — with a user-id → doc-id map for lookups/upserts
 (reference DocIdStorage, write/collection/doc_id_storage.rs).
 
 Port of ``orama_core_tpu/engine/collection_write.py``: host code, copied with its imports
-re-pointed at ``orama_core_tpu_torch``.
+re-pointed at ``orama_core_tpu_torch``; the embedding text of a document is
+one function (``embedding_text``), which tests and ``chip_smoke.py`` also
+call.
 """
 
 from __future__ import annotations
@@ -62,6 +64,39 @@ def flatten_document(doc: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
         else:
             out[key] = v
     return out
+
+
+def _src_text(v: Any) -> str:
+    # list-valued fields join with spaces like the auto path;
+    # str() would embed the Python repr ("['red', 'blue']")
+    if isinstance(v, list):
+        return " ".join(_src_text(x) for x in v)
+    return v if isinstance(v, str) else str(v)
+
+
+def embedding_text(
+    flat: Dict[str, Any],
+    embedding_override: Optional[Any],
+    embedding_sources: Sequence[str],
+    string_values: Sequence[str],
+) -> str:
+    """The text an embedding field embeds for one flattened document: the
+    hook's string, else the hook's properties, else the field's configured
+    sources, else every string value in document order (reference:
+    fields.rs:410-485 hook input assembly)."""
+    if isinstance(embedding_override, str):
+        parts = [embedding_override]
+    elif isinstance(embedding_override, (list, tuple)):
+        parts = [
+            _src_text(flat[src]) for src in embedding_override if src in flat
+        ]
+    elif embedding_sources:
+        parts = [
+            _src_text(flat[src]) for src in embedding_sources if src in flat
+        ]
+    else:
+        parts = list(string_values)
+    return " ".join(p for p in parts if p).strip()
 
 
 def infer_value_type(value: Any) -> Optional[ValueType]:
@@ -280,30 +315,9 @@ class CollectionWriter:
         for f in self.fields.values():
             if f.type != ValueType.EMBEDDING or not f.model:
                 continue
-            def _src_text(v: Any) -> str:
-                # list-valued fields join with spaces like the auto path;
-                # str() would embed the Python repr ("['red', 'blue']")
-                if isinstance(v, list):
-                    return " ".join(_src_text(x) for x in v)
-                return v if isinstance(v, str) else str(v)
-
-            if isinstance(embedding_override, str):
-                parts = [embedding_override]
-            elif isinstance(embedding_override, (list, tuple)):
-                parts = [
-                    _src_text(flat[src])
-                    for src in embedding_override
-                    if src in flat
-                ]
-            elif f.embedding_sources:
-                parts = [
-                    _src_text(flat[src])
-                    for src in f.embedding_sources
-                    if src in flat
-                ]
-            else:
-                parts = string_values
-            text = " ".join(p for p in parts if p).strip()
+            text = embedding_text(
+                flat, embedding_override, f.embedding_sources, string_values
+            )
             if text:
                 # Long inputs chunk into multiple vectors per document (the
                 # reference's acknowledged TODO, fields.rs:458-462); the

@@ -29,8 +29,8 @@ header (admin.rs:33-45), search/answer/actions = ``?api-key=`` query param
 
 Port of ``orama_core_tpu/server/http.py``: the same routes, auth, load
 shedding and SSE pump over the port's engine. A route that reaches a part
-not ported yet (``NotImplementedError``: installing a hook, whose JS
-runtime is a later slice) answers 501 with the reason, not a 500.
+not ported yet (``NotImplementedError``) answers 501 with the reason, not
+a 500.
 """
 
 from __future__ import annotations

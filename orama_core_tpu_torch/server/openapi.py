@@ -142,14 +142,7 @@ def openapi_spec() -> Dict[str, Any]:
             # hooks: reference path shapes (hooks.rs:36,68,101,137) — the
             # /v1/collections/{id}/hooks/* aliases also resolve
             "/v1/collections/{id}/hooks/create": {
-                "post": {
-                    **_op("Register a JS hook (not ported yet: 501)",
-                          "Bearer write key"),
-                    "responses": {
-                        "501": {"description": "the JS hook runtime is not "
-                                "ported to this package yet"},
-                    },
-                }
+                "post": _op("Register a JS hook", "Bearer write key")
             },
             "/v1/{collection_id}/hooks/list": {
                 "get": _op("List hooks", "Bearer write key", body=False)

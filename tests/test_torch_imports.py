@@ -175,3 +175,63 @@ def test_entry_point_and_server_on_cpu_load_no_jax(tmp_path):
     )
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip().endswith("ok")
+
+
+def test_main_path_loads_no_grpc(tmp_path):
+    """The card's machine has neither ``grpc`` nor ``protobuf``: a hooked
+    write, a commit and a search through ``build_orama(device="cpu")``
+    leave neither in the process (``rpc`` loads only for
+    ``ai.remote_url`` or ``ai.grpc_port``)."""
+    code = (
+        "import sys\n"
+        "from orama_core_tpu_torch import build_orama\n"
+        "from orama_core_tpu_torch.types import SearchParams\n"
+        "e = build_orama(start_background=False, device='cpu')\n"
+        "e.write_side.create_collection('master', 'c', 'r', 'w')\n"
+        "e.flush()\n"
+        "e.hooks.insert_hook('c', 'selectEmbeddingProperties',\n"
+        "    'function selectEmbeddingProperties(doc) {'\n"
+        "    ' return doc.kind === \"t\" ? [\"title\"] : `${doc.body}`; }')\n"
+        "e.write_side.write('c', [{'id': '1', 'kind': 't', 'title': 'hello',"
+        " 'body': 'world'}, {'id': '2', 'body': 'hello there'}], 'w')\n"
+        "e.commit()\n"
+        "r = e.read_side.search('c', SearchParams.from_json("
+        "{'term': 'hello', 'mode': 'hybrid'}), 'r')\n"
+        "assert r.count == 2, r\n"
+        "e.close()\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] == 'grpc'\n"
+        "       or m.startswith('google.protobuf')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.dirname(PKG) + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_remote_backend_without_grpc_names_the_package(tmp_path, monkeypatch):
+    """Where ``grpc`` is missing, ``ai.remote_url`` raises the ImportError,
+    naming the package; the engine never serves its in-process models in
+    place of the configured remote backend."""
+    import pytest
+
+    from orama_core_tpu_torch import build_orama
+    from orama_core_tpu_torch.config import OramaxConfig
+
+    for name in list(sys.modules):
+        if name.startswith("orama_core_tpu_torch.rpc"):
+            monkeypatch.delitem(sys.modules, name)
+    monkeypatch.setitem(sys.modules, "grpc", None)
+    for key in ("remote_url", "grpc_port"):
+        cfg = OramaxConfig()
+        cfg.writer_side.data_dir = str(tmp_path / key / "w")
+        cfg.reader_side.data_dir = str(tmp_path / key / "r")
+        setattr(cfg.ai, key, "127.0.0.1:1" if key == "remote_url" else 0)
+        with pytest.raises(ImportError, match="grpc"):
+            build_orama(cfg, start_background=False, device="cpu")

@@ -4,8 +4,9 @@ CPU: tests/test_server.py's thirteen cases against a port engine
 the reference's server and the port's, whose statuses and bodies must be
 equal (``elapsed`` timings dropped, scores within rtol 1e-5).
 
-Hooks: installing one answers 501 (the JS runtime is not ported yet);
-listing, fetching and removing stored hooks work as in the reference."""
+Hooks: installing one answers 200 and runs on the port's MiniJS; an
+invalid one answers 400; listing, fetching and removing work as in the
+reference."""
 
 import json
 import os
@@ -235,30 +236,24 @@ def test_planned_answer_sse(server):
 
 
 def test_hooks_api(server):
-    """Creating a hook answers 501 with the reason; hooks stored on disk
-    (as the reference package writes them) list, fetch under both path
-    shapes, survive an insert (the doc's embedding is skipped, as for a
-    hook that fails) and remove."""
+    """Creating a hook answers 200 (400 when it is invalid, 401 without
+    the write key); it lists, fetches under both path shapes and removes;
+    an insert with the hook routes the embedding input through ``title``
+    only, as tests/test_server.py::test_hooks_api does on the reference."""
     engine, base = server
     _setup_collection(engine, base)
     name = "selectEmbeddingProperties"
     code = "function selectEmbeddingProperties(doc) { return ['title']; }"
     status, out = _req(base + "/v1/collections/c1/hooks/create", "POST",
                        {"name": name, "code": code}, bearer="wk")
-    assert status == 501 and "not implemented" in out["error"]
-    assert "minijs" in out["error"]
+    assert status == 200 and out == {"ok": True}
     assert _req(base + "/v1/collections/c1/hooks/create", "POST",
                 {"name": name, "code": code}, bearer="bad")[0] == 401
+    status, out = _req(base + "/v1/collections/c1/hooks/create", "POST",
+                       {"name": name, "code": code[:-3]}, bearer="wk")
+    assert status == 400 and "unbalanced" in out["error"]
     status, hooks = _req(base + "/v1/collections/c1/hooks/list", bearer="wk")
-    assert status == 200 and hooks == {}
-
-    hooks_dir = engine.hooks.data_dir
-    os.makedirs(hooks_dir, exist_ok=True)
-    with open(os.path.join(hooks_dir, "hooks.json"), "w") as f:
-        json.dump([{"collection": "c1", "name": name, "code": code}], f)
-    engine.hooks._load()
-    status, hooks = _req(base + "/v1/collections/c1/hooks/list", bearer="wk")
-    assert status == 200 and name in hooks
+    assert status == 200 and hooks == {name: code}
     status, one = _req(base + f"/v1/collections/c1/hooks/get?name={name}",
                        bearer="wk")
     assert status == 200 and one["code"] == code
@@ -268,11 +263,24 @@ def test_hooks_api(server):
     assert status == 200 and one["code"] == code
     status, hooks = _req(base + "/v1/c1/hooks/list", bearer="wk")
     assert status == 200 and name in hooks
+    with open(os.path.join(engine.hooks.data_dir, "hooks.json")) as f:
+        assert json.load(f) == [{"collection": "c1", "name": name,
+                                 "code": code}]
+
+    embedded = []
+    embed_passage = engine.ai.embed_passage
+
+    def spy(model, texts):
+        embedded.extend(texts)
+        return embed_passage(model, texts)
+
+    engine.ai.embed_passage = spy
     status, _ = _req(base + "/v1/collections/c1/insert", "POST",
-                     [{"id": "3", "title": "hooked doc", "body": "x"}],
-                     bearer="wk")
+                     [{"id": "3", "title": "hooked doc",
+                       "body": "ignored for embedding"}], bearer="wk")
     assert status == 200
     engine.flush()
+    assert embedded == ["hooked doc"]
     status, _ = _req(base + "/v1/c1/hooks/remove", "POST", {"name": name},
                      bearer="wk")
     assert status == 200
