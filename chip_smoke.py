@@ -61,6 +61,22 @@ mode held against a CPU reader of the same trained arrays (equal hit
 ids), and the device ms of one query's ANN search (at 8 and 20 timed
 calls; with ``--profile``, its kernel count) and of its ADC scan.
 
+After the ANN phase, the mesh phase (one ``{"mesh": ...}`` line):
+``mesh_shape=(4, 1)`` readers, all four shards on card 0, built from the
+same committed arrays as single-device readers of the exact collection
+(with one posting per (term, doc)), the chunked one, and the ANN phase's
+trained IVF-PQ index; 32 queries each of fulltext, phrase, vector (the
+per-shard fused kNN), filtered + faceted vector, hybrid RRF and min-max,
+chunked vector and IVF-PQ vector, every hit list held against the
+single-device reader's (IVF-PQ: no rank scores lower, the union of the
+shards' candidates holding the single-device set; one query against the
+same mesh on the CPU), with K1, K4, K2, K3 and K6 required to launch at
+least once per shard per query of their modes; p50 sharded and single,
+the launches, the sharded layouts' GiB; with two or more cards, the exact
+collection again with its shards spread over them; then the multi-slice
+router over two ``build_orama`` engines on the card (5,000 documents,
+``sync_global_stats``) against one engine that holds every document.
+
 Phase 3 also checks and times K3 at 128, 1,024 and 4,096 selected slots
 (Q = 8, 64, 256 at k = 16; one ``{"k3_shapes": ...}`` line) and K1 over
 the combined plan of a batch of 64 Zipf-drawn terms (row ids; in the K1
@@ -1608,7 +1624,8 @@ def phase_ann(arrays, rng, profile=False, n_queries=32, device="cuda"):
     brute force over the same bf16 rows, 32 queries per ANN_QUERIES mode
     through ``search`` (launch counts reset before and read after each),
     one query per mode held against a CPU reader of the same trained
-    arrays. Returns ({index: metrics}, launch totals)."""
+    arrays. Returns ({index: metrics}, launch totals, the trained IVF-PQ
+    vector index and the 64 queries, which the mesh phase serves)."""
     import torch
 
     from orama_core_tpu_torch.models.ai_service import AIService
@@ -1715,13 +1732,322 @@ def phase_ann(arrays, rng, profile=False, n_queries=32, device="cuda"):
         row.update(ann_timings(reader, queries[0], profile=profile))
         res[mode] = row
         log(f"ann {mode}: {row}")
+        if mode == "ivf_pq":
+            trained = c
         del reader, cpu_reader, c
         torch.cuda.empty_cache()
-    return res, totals
+    return res, totals, trained, queries
 
 
 def _facets(f):
     return None if f is None else {k: (v.count, v.values) for k, v in f.items()}
+
+
+# -- sharded serving over a device mesh, and the multi-slice router ---------------
+
+MESH_SHARDS = 4
+MESH_MODES = {  # mode: (collection, search mode, query words, extra params,
+    #                    kernels a query launches once per shard)
+    "fulltext": ("exact", "fulltext", 1, {}, ("bm25_scan",)),
+    "phrase": ("exact", "fulltext", 2, {}, ("bm25_scan", "phrase_counts")),
+    "vector": ("exact", "vector", 1, {},
+               ("knn_subblock_max", "knn_rescore")),
+    "vector_filtered": ("exact", "vector", 1, MODES["vector_filtered"][3], ()),
+    "hybrid_rrf": ("exact", "hybrid", 1, {}, ("bm25_scan",)),
+    "hybrid_minmax": ("exact", "hybrid", 1, {"fusion": "minmax"},
+                      ("bm25_scan",)),
+    "vector_multivec": ("chunked", "vector", 1, {}, ("knn_subblock_max_mv",)),
+    # raw query vectors (the ANN phase's near-duplicate queries)
+    "vector_ivf_pq": ("ivf_pq", "vector", 0, {}, ()),
+}
+
+
+def mesh_reader(arrays, index, devices=None, device="cuda"):
+    """A reader of ``arrays`` with ``mesh_shape=(MESH_SHARDS, 1)``; its
+    shards on ``devices`` when given (else ``make_mesh``'s blocks over the
+    visible cards), its per-shard layouts built (``warmup``)."""
+    from orama_core_tpu_torch.config import GpuConfig
+    from orama_core_tpu_torch.engine.carry import reader_from_arrays
+    from orama_core_tpu_torch.parallel.mesh import make_mesh
+
+    rd = reader_from_arrays(**arrays, gpu_cfg=GpuConfig(
+        device=device, vector_index=index, mesh_shape=(MESH_SHARDS, 1)))
+    if devices is not None:
+        rd._device.mesh = make_mesh((MESH_SHARDS, 1), devices=devices)
+        rd._device.device = rd._device.mesh.root
+    rd.warmup()
+    return rd
+
+
+def mesh_mode(mesh, single, bodies, mode, n_queries):
+    """One mode's queries on the mesh reader (launch counts reset before,
+    read after), then on the single-device reader, each held against the
+    other. Returns (p50 sharded, p50 single, launches, ids equal)."""
+    import torch
+
+    from orama_core_tpu_torch.models.ai_service import AIService
+    from orama_core_tpu_torch.ops import _cuda
+    from orama_core_tpu_torch.types import SearchParams
+
+    coll, kind, _w, _x, expect = MESH_MODES[mode]
+    ai = AIService()
+    params = [SearchParams.from_json(b) for b in bodies]
+    for p in params[:4]:  # first-use allocations
+        mesh.search(p, ai)
+        single.search(p, ai)
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    lat_m, res_m = [], []
+    for p in params[4:]:
+        t0 = time.perf_counter()
+        res_m.append(mesh.search(p, ai))
+        lat_m.append((time.perf_counter() - t0) * 1e3)
+    counts = dict(_cuda.LAUNCHES)
+    lat_s, res_s = [], []
+    for p in params[4:]:
+        t0 = time.perf_counter()
+        res_s.append(single.search(p, ai))
+        lat_s.append((time.perf_counter() - t0) * 1e3)
+    for k in expect:
+        require(counts[k] >= MESH_SHARDS * n_queries,
+                f"mesh {mode}: {k} launched {counts[k]} times for "
+                f"{n_queries} queries on {MESH_SHARDS} shards")
+    require(sum(1 for r in res_m if r[1] > 0) >= n_queries // 2,
+            f"mesh {mode}: most queries matched nothing")
+    same_ids = 0
+    for (gm, nm, fm), (gs, ns, fs) in zip(res_m, res_s):
+        scores = [s for _, s in gm]
+        require(all(np.isfinite(scores)), f"mesh {mode}: non-finite score")
+        require(scores == sorted(scores, reverse=True),
+                f"mesh {mode}: hits not in descending order")
+        same_ids += [d for d, _ in gm] == [d for d, _ in gs]
+        if coll == "ivf_pq":
+            # each shard reranks its own candidates: the union holds the
+            # single-device candidate set, so no rank scores lower
+            require(len(gm) == len(gs) and all(
+                a >= b - 1e-4 * abs(b) for a, b in zip(
+                    scores, [s for _, s in gs])),
+                f"mesh {mode}: a rank scores below the single-device one")
+            continue
+        check_hits(gm, gs, 1e-4, f"mesh {mode} vs single device")
+        if kind == "vector":
+            # a similarity within rounding of zero may change sign with
+            # the order of summation: allow that many flips
+            require(abs(nm - ns) <= 2, f"mesh {mode}: count {nm} vs {ns}")
+            fa, fb = _facets(fm), _facets(fs)
+            require((fa is None) == (fb is None) and (fa is None or all(
+                abs(fa[k][1][b] - fb[k][1][b]) <= 2 for k in fb
+                for b in fb[k][1])), f"mesh {mode}: facets {fa} vs {fb}")
+        else:
+            require(nm == ns, f"mesh {mode}: count {nm} vs {ns}")
+            require(_facets(fm) == _facets(fs), f"mesh {mode}: facets differ")
+    return (float(np.percentile(lat_m, 50)), float(np.percentile(lat_s, 50)),
+            counts, same_ids)
+
+
+def mesh_bodies(mode, rng, n, queries):
+    _c, kind, n_words, extra, _e = MESH_MODES[mode]
+    if n_words == 0:
+        return [dict(mode=kind, vector=queries[i % len(queries)].tolist(),
+                     **extra) for i in range(n)]
+    return [dict(term=zipf_term(rng, n_words), mode=kind, **extra)
+            for _ in range(n)]
+
+
+def phase_mesh(arrays, mv_arrays, ivf_pq, ann_queries, rng, card,
+               n_queries=32, profile=False):
+    """Sharded serving: ``mesh_shape=(4, 1)`` readers, all four shards on
+    card 0, built from the same committed arrays as single-device readers
+    (the 1M exact collection, the 250,000-doc chunked one, and the ANN
+    phase's trained IVF-PQ index of the clustered vectors); 32 queries per
+    MESH_MODES mode on each, held against each other; then (with two or
+    more cards) the exact collection with its shards spread over them; then
+    the multi-slice router over two engines. Returns the ``{"mesh": ...}``
+    record and the phase's launches (of the mesh readers' queries). With
+    ``profile``, each mode's mesh queries are also traced
+    (``profile_window``)."""
+    import torch
+
+    from orama_core_tpu_torch.models.ai_service import AIService
+    from orama_core_tpu_torch.ops import _cuda
+    from orama_core_tpu_torch.types import SearchParams
+
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    on_card0 = ["cuda:0"] * MESH_SHARDS
+    vec_only = dict(arrays, collection_id="smoke_ivf_pq",
+                    fields=[f for f in arrays["fields"]
+                            if f["type"] == "embedding"],
+                    arrays={"vector-1": ivf_pq.to_arrays()})
+    # one posting per (term, doc), as an index built from documents holds:
+    # the single-device reader scores Zipf-head terms from dense rows,
+    # which count a repeated posting once, and the mesh path scans
+    # postings, as the reference's does
+    exact = dict(arrays, arrays=dict(arrays["arrays"], **{
+        "string-0": unique_postings(arrays["arrays"]["string-0"])}))
+    colls = {"exact": (exact, "exact"), "chunked": (mv_arrays, "exact"),
+             "ivf_pq": (vec_only, "ivf_pq")}
+    rec = {"shards": MESH_SHARDS, "cards": n_cards, "card": card,
+           "queries_per_mode": n_queries, "p50_ms": {}, "launches": {},
+           "ids_equal": {}, "gib": {}, "build_s": {}}
+    totals = {k: 0 for k in _cuda.LAUNCHES}
+    for coll, (arr, index) in colls.items():
+        single = make_reader(arr, "cuda", index)
+        single.warmup()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        mesh = mesh_reader(arr, index, on_card0)
+        torch.cuda.synchronize()
+        rec["build_s"][coll] = time.perf_counter() - t0
+        rec["gib"][coll] = (torch.cuda.memory_allocated() - before) / 2**30
+        require(mesh._device.n_shards == MESH_SHARDS and mesh._device.mesh.shared,
+                f"mesh {coll}: not {MESH_SHARDS} shards on one card")
+        for mode, (c, *_r) in MESH_MODES.items():
+            if c != coll:
+                continue
+            bodies = mesh_bodies(mode, rng, n_queries + 4, ann_queries)
+            require(mesh._use_sharded(SearchParams.from_json(bodies[0])),
+                    f"mesh {mode}: not served by the mesh path")
+            p_m, p_s, counts, same = mesh_mode(mesh, single, bodies, mode,
+                                               n_queries)
+            for k, v in counts.items():
+                totals[k] += v
+            rec["p50_ms"][mode] = {"sharded": p_m, "single": p_s}
+            rec["launches"][mode] = {k: v for k, v in counts.items() if v}
+            rec["ids_equal"][mode] = same
+            if profile:
+                rec.setdefault("profile", {})[mode] = profile_window(
+                    mesh, AIService(), [SearchParams.from_json(b)
+                                        for b in bodies[4:20]])
+            log(f"mesh {mode}: p50 {p_m:.3f} ms sharded, {p_s:.3f} single, "
+                f"launches {rec['launches'][mode]}, ids equal {same}/"
+                f"{n_queries}")
+        if coll == "ivf_pq":
+            # the union of per-shard candidates is not the single-device
+            # set: hold one query's count and hits against the same mesh
+            # program on the CPU
+            cpu = mesh_reader(arr, index, device="cpu")
+            p = SearchParams.from_json(mesh_bodies(
+                "vector_ivf_pq", rng, 1, ann_queries)[0])
+            got, got_n, _ = mesh.search(p, AIService())
+            want, want_n, _ = cpu.search(p, AIService())
+            check_hits(got, want, 1e-4, "mesh ivf_pq vs CPU mesh")
+            require(abs(got_n - want_n) <= 2,
+                    f"mesh ivf_pq: count {got_n} vs CPU {want_n}")
+            del cpu
+        if coll == "exact" and n_cards >= 2:
+            spread = mesh_reader(arr, index)
+            require(not spread._device.mesh.shared, "mesh: not spread")
+            rec["spread"] = {}
+            for mode in ("fulltext", "phrase", "vector", "hybrid_rrf"):
+                p_m, p_s, _c, same = mesh_mode(
+                    spread, single, mesh_bodies(mode, rng, n_queries + 4,
+                                                ann_queries),
+                    mode, n_queries)
+                rec["spread"][mode] = {"sharded": p_m, "single": p_s,
+                                       "ids_equal": same}
+            del spread
+        del mesh, single
+        torch.cuda.empty_cache()
+    rec["multislice"] = mesh_multislice()
+    rec["wall_s"] = time.perf_counter() - t_phase
+    return rec, totals
+
+
+def mesh_multislice(n_docs=5000, seed=7, device="cuda"):
+    """The multi-slice router over two port engines on the card
+    (``LocalSlice``), with the ``build_orama`` passes' documents, against
+    one engine that holds every document, after ``sync_global_stats``:
+    equal top hits and counts, and the merged facets."""
+    from orama_core_tpu_torch import build_orama
+    from orama_core_tpu_torch.config import OramaxConfig
+    from orama_core_tpu_torch.parallel.multislice import (
+        LocalSlice, MultiSliceRouter,
+    )
+    from orama_core_tpu_torch.types import SearchParams
+
+    work = os.path.join(ROOT, "build", "chip_smoke_slices")
+    shutil.rmtree(work, ignore_errors=True)
+
+    def engine(name):
+        c = OramaxConfig()
+        c.writer_side.data_dir = os.path.join(work, name, "w")
+        c.reader_side.data_dir = os.path.join(work, name, "r")
+        c.ai.backend = "fake"
+        return build_orama(c, start_background=False, device=device)
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    vocab = [f"w{i}" for i in range(400)]
+    zipf = 1.0 / np.arange(1, 401) ** 0.8
+    zipf /= zipf.sum()
+    docs = _short_docs(rng, n_docs, vocab, zipf)
+    slices = [engine("s0"), engine("s1")]
+    oracle = engine("all")
+    router = MultiSliceRouter([LocalSlice(e) for e in slices])
+    try:
+        router.create_collection("master", "c", "r", "w",
+                                 embedding_model="fake-base")
+        oracle.write_side.create_collection(
+            "master", "c", read_api_key="r", write_api_key="w",
+            embedding_model="fake-base")
+        oracle.flush()
+        for lo in range(0, n_docs, 500):
+            router.write("c", docs[lo:lo + 500], "w")
+            router.flush()
+            oracle.write_side.write("c", docs[lo:lo + 500], "w")
+            oracle.flush()
+        router.commit()
+        oracle.commit()
+        router.sync_global_stats("c", "w")
+        per_slice = [e.read_side.count_documents("c") for e in slices]
+        require(sum(per_slice) == n_docs and min(per_slice) > 0,
+                f"multislice: documents per slice {per_slice}")
+        facets = {"price": {"ranges": [{"from": 0, "to": 30},
+                                       {"from": 30, "to": 100}]}}
+        bodies = [
+            {"term": "w3"}, {"term": "w1 w2"}, {"term": "w5", "limit": 20},
+            {"term": "w1", "where": {"price": {"gte": 30}}},
+            {"term": "w4", "facets": facets},
+            {"term": "w4", "mode": "vector"},
+            {"term": "w2 w7", "mode": "hybrid"},
+        ]
+        for body in bodies:
+            got = router.search("c", dict(body), "r")
+            want = oracle.read_side.search(
+                "c", SearchParams.from_json(dict(body)), "r")
+            if body.get("mode") == "hybrid":
+                # global fusion ranks each slice's top-L components
+                # (L = max(4 * limit, 40)): a doc whose other component
+                # ranks below L there fuses without it, so only the top
+                # hit is held (the router's documented approximation)
+                require(got.hits and got.hits[0].id == want.hits[0].id,
+                        f"multislice {body}: top hit differs")
+            else:
+                check_hits([(h.id, h.score) for h in got.hits],
+                           [(h.id, h.score) for h in want.hits], 1e-4,
+                           f"multislice {body}")
+            if body.get("mode") == "vector":
+                require(abs(got.count - want.count) <= 2,
+                        f"multislice {body}: count {got.count} vs "
+                        f"{want.count}")
+            else:
+                require(got.count == want.count,
+                        f"multislice {body}: count {got.count} vs "
+                        f"{want.count}")
+            require(got.count > 0, f"multislice {body}: no hits")
+            require(_facets(got.facets) == _facets(want.facets),
+                    f"multislice {body}: facets differ")
+    finally:
+        router.close()
+        for e in slices + [oracle]:
+            e.close()
+        shutil.rmtree(work, ignore_errors=True)
+    out = {"docs": n_docs, "slices": 2, "docs_per_slice": per_slice,
+           "queries": len(bodies), "wall_s": time.perf_counter() - t0}
+    log(f"multislice: {out}")
+    return out
 
 
 def _short_docs(rng, n_docs, vocab, zipf):
@@ -2718,12 +3044,19 @@ def main() -> int:
     del readers
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ann, ann_launches = phase_ann(arrays, rng,
-                                  profile="--profile" in sys.argv[1:])
+    ann, ann_launches, ivf_pq, ann_queries = phase_ann(
+        arrays, rng, profile="--profile" in sys.argv[1:])
     for k, v in ann_launches.items():
         launches[k] += v
     print(json.dumps({"ann": ann, "wall_s": time.perf_counter() - t0,
                       "card": card}), flush=True)
+    mesh, mesh_launches = phase_mesh(arrays, mv_arrays, ivf_pq, ann_queries,
+                                     rng, card,
+                                     profile="--profile" in sys.argv[1:])
+    for k, v in mesh_launches.items():
+        launches[k] += v
+    del ivf_pq, mv_arrays
+    print(json.dumps({"mesh": mesh, "card": card}), flush=True)
     for rec in records:
         rec["launches"] = launches[rec["name"]]
         require(rec["launches"] > 0, f"{rec['name']} never ran on the main path")

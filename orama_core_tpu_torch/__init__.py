@@ -28,7 +28,15 @@ transformer encoder and answers decode with its LLM, on the same device
 models from a gRPC sidecar (``rpc.RemoteAIService``) and ``ai.grpc_port``
 serves this engine's models as one (``rpc.serve_ai``); ``rpc`` needs
 ``grpcio`` and ``protobuf`` and is imported only when one of the two is
-set. Not ported yet (raises ``NotImplementedError``): mesh sharding.
+set.
+
+``gpu.mesh_shape`` (S, 1) shards each collection over S data shards of a
+device mesh (``parallel/mesh.py``; several shards may share one card) and
+serves its queries through the mesh programs (``parallel/
+sharded_engine.py``), the kernels launched once per shard;
+``parallel/multislice.py`` routes documents and queries over whole
+engines (in process, over HTTP, or over gRPC with ``parallel/
+slice_grpc.py``, imported only where it is asked for).
 """
 
 from __future__ import annotations

@@ -124,8 +124,12 @@ class GpuConfig:
     """Device execution knobs: the reference's ``TpuConfig`` with the same
     serving knobs and defaults, plus ``device``. The port runs on one CUDA
     card; ``device="cpu"`` runs every kernel's plain torch version instead
-    (the tests do this). The mesh knobs are kept so configs load, but a
-    non-empty ``mesh_shape`` raises (sharded serving is a later slice)."""
+    (the tests do this). ``mesh_shape`` (S, 1) with S >= 2 shards every
+    committed structure over S data shards and serves ``search`` through
+    the mesh programs (``parallel/``): the shards go onto the visible
+    cards in blocks, all of them on one card when there is one (on the
+    CPU, all on the CPU), and the kernels launch once per shard. The
+    ``model`` axis is not used by the engine."""
 
     # "cuda" (one card) or "cpu" (plain torch versions of every kernel)
     device: str = "cuda"

@@ -86,7 +86,9 @@ def reader_from_arrays(
     committed_offset: int = 0,
 ) -> CollectionReader:
     """A port reader serving exactly the given committed arrays (no
-    uncommitted window, no tombstones: dead docs are zeros of ``alive``)."""
+    uncommitted window, no tombstones: dead docs are zeros of ``alive``).
+    With ``gpu_cfg.mesh_shape`` set it is a mesh reader: its ``warmup``
+    builds the per-shard layouts of the same arrays."""
     reader = CollectionReader(
         collection_id, read_api_key, description, gpu_cfg, default_locale
     )

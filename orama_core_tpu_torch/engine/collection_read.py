@@ -27,7 +27,16 @@ fused kNN (K6).
 fused kNN at the batch's size, other rows through the batched fused
 program (one K1 launch over the batch's combined plan, one corpus
 product), phrase rows one by one; vector and hybrid rows of an ANN
-collection one by one. Left out (raises): the sharded/mesh branches.
+collection one by one.
+
+``GpuConfig.mesh_shape`` (S, 1) with S >= 2 serves ``search`` through the
+mesh branches (reference :2185-2816): per-shard layouts of every committed
+structure, and ``parallel/sharded_engine.py``'s programs, which launch K1,
+K4, K2 + K3 or K6 once per shard on that shard's device and merge on the
+mesh's first device. Flat IVF and flat PQ vector modes, ``search_batch``
+and the fused program run there too, with whole arrays, as the reference
+runs them as ordinary programs over its data-sharded arrays: the same
+results, nothing partitioned.
 """
 
 from __future__ import annotations
@@ -163,13 +172,32 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
 # --- device cache ------------------------------------------------------------
 
 
+class _ShardsMoved(RuntimeError):
+    """A sharded search met a doc id past the capacity it split the doc
+    space by: a commit that grew the capacity landed during the search,
+    which then starts again with the new split."""
+
+
 class _DeviceCache:
     """Device copies of immutable committed structures, keyed by object id.
-    Entries die with their committed generation (commit replaces objects)."""
+    Entries die with their committed generation (commit replaces objects).
+
+    With ``cfg.mesh_shape`` set, the mesh's serving path reads per-shard
+    layouts (``sharded_*`` below, over ``parallel/mesh.py``'s mesh), and
+    the single-device layouts, which the paths outside the mesh programs
+    read (batches, the replicated IVF and PQ modes), live whole on the
+    mesh's first device."""
 
     def __init__(self, cfg: GpuConfig) -> None:
         self.cfg = cfg
         self.device = torch.device(cfg.device)
+        self.mesh = None
+        if cfg.mesh_shape:
+            from ..parallel.mesh import make_mesh
+
+            self.mesh = make_mesh(cfg.mesh_shape, tuple(cfg.mesh_axis_names),
+                                  device=cfg.device)
+            self.device = self.mesh.root
         self._store: Dict[Tuple[int, Any], Any] = {}
         self._keepalive: Dict[int, Any] = {}
 
@@ -188,19 +216,21 @@ class _DeviceCache:
     def drop(self, obj: Any) -> None:
         oid = id(obj)
         self._keepalive.pop(oid, None)
-        for key in [k for k in self._store if k[0] == oid]:
-            del self._store[key]
+        # a snapshot of the keys and pops: searches build and evict
+        # entries from other threads
+        for key in [k for k in list(self._store) if k[0] == oid]:
+            self._store.pop(key, None)
 
     def _evict_variants(self, obj: Any, tag: str, key: Any) -> None:
         """Drop cached ``tag`` variants of ``obj`` other than ``key``."""
         oid = id(obj)
         stale = [
-            k for k in self._store
+            k for k in list(self._store)
             if k[0] == oid and isinstance(k[1], tuple)
             and k[1][0] == tag and k[1] != key
         ]
         for k in stale:
-            del self._store[k]
+            self._store.pop(k, None)
 
     # string -----------------------------------------------------------------
 
@@ -537,6 +567,381 @@ class _DeviceCache:
 
         return self._get(b, ("bool", cap), build)
 
+    # ---- sharded (shard-local doc-id space) layouts --------------------------
+    #
+    # With a data mesh, committed structures are repacked at cache-build time
+    # into per-shard arrays (parallel/mesh.Sharded): doc d lives on shard
+    # d // local_cap at local id d % local_cap. The mesh programs of
+    # parallel/sharded_engine.py read these; dense arrays stay per shard.
+
+    @property
+    def n_shards(self) -> int:
+        if self.mesh is None:
+            return 1
+        from ..parallel.mesh import DATA_AXIS
+
+        return self.mesh.shape.get(DATA_AXIS, 1)
+
+    def put_stacked(self, arr: np.ndarray, dtype=None):
+        """Host ``[S, ...]`` onto the mesh, shard s's rows at ``arr[s]``."""
+        from ..parallel.mesh import put_stacked
+
+        return put_stacked(self.mesh, arr, dtype)
+
+    def _alloc(self, shape, dtype, fill=0):
+        from ..parallel.mesh import alloc
+
+        return alloc(self.mesh, shape, dtype, fill)
+
+    def _get_sharded(self, obj: Any, tag: str, size: int, build) -> Any:
+        """``_get`` of a per-shard layout of ``obj`` for a shard size; a
+        capacity that grew moves every doc's shard, so the layouts of the
+        old size are evicted."""
+        key = (tag, size)
+        self._evict_variants(obj, tag, key)
+        return self._get(obj, key, build)
+
+    def zeros_sharded(self, cap_s: int):
+        key = ("zeros_sh", cap_s)
+        hit = self._store.get((0, key))
+        if hit is None:
+            hit = self._alloc((cap_s // self.n_shards,), torch.float32)
+            self._store[(0, key)] = hit
+        return hit
+
+    @staticmethod
+    def _shard_perm(global_docs: np.ndarray, local_cap: int, n_shards: int):
+        """Stable partition of row-arrays by owning shard: returns (perm,
+        shard offsets [S+1], local doc ids in perm order)."""
+        owner = global_docs // local_cap
+        perm = np.argsort(owner, kind="stable")
+        counts = np.bincount(owner, minlength=n_shards)
+        if len(counts) > n_shards:
+            raise _ShardsMoved(f"doc {int(global_docs.max())} is past "
+                               f"{n_shards} shards of {local_cap}")
+        offs = np.zeros(n_shards + 1, np.int64)
+        offs[1:] = np.cumsum(counts)
+        local = (global_docs[perm] % local_cap).astype(np.int32)
+        return perm, offs, local
+
+    def _rows_by_shard(self, vecs: np.ndarray, perm, offs, p_l: int, dtype):
+        """Sharded [p_l, D] rows in ``dtype``: shard s's rows are
+        ``vecs[perm[offs[s]:offs[s+1]]]``, then zero pad rows; written on
+        the device a chunk at a time (no padded host copy)."""
+        out = self._alloc((p_l, vecs.shape[1]), dtype)
+        chunk = 1 << 17
+        for si in range(self.n_shards):
+            rows = perm[int(offs[si]):int(offs[si + 1])]
+            part = out[si]
+            for lo in range(0, len(rows), chunk):
+                got = np.asarray(vecs[rows[lo:lo + chunk]], np.float32)
+                part[lo:lo + len(got)] = torch.as_tensor(
+                    got, device=part.device).to(dtype)
+        return out
+
+    def sharded_string_arrays(self, s: CommittedStringIndex, local_cap: int):
+        """(post_docs, post_tf, post_ni, post_lens per shard, each padded to
+        a bucket + one BLOCK as K1 takes them; per-shard CSR term offsets
+        int64 [S, T + 1] on the host, for the query-time block plans)."""
+
+        def build():
+            BLOCK = bm25_ops.BLOCK
+            S = self.n_shards
+            steps = self.cfg.posting_bucket_steps
+            p = len(s.post_docs)
+            t_count = np.diff(s.term_starts).astype(np.int64)
+            T = len(t_count)
+            if p == 0:
+                p_pad = bucket_pad(1, steps) + BLOCK
+                z_i = np.zeros((S, p_pad), np.int32)
+                z_f = np.zeros((S, p_pad), np.float32)
+                return (self.put_stacked(z_i), self.put_stacked(z_f),
+                        self.put_stacked(z_f), self.put_stacked(z_f),
+                        np.zeros((S, T + 1), np.int64))
+            post_docs = s.post_docs.astype(np.int64)
+            perm, offs, local_docs = self._shard_perm(post_docs, local_cap, S)
+            owner = post_docs // local_cap
+            # per-shard CSR term offsets (host, for query-time block plans)
+            term_of_post = np.repeat(np.arange(T, dtype=np.int64), t_count)
+            key = term_of_post * S + owner
+            ts_counts = np.bincount(key, minlength=T * S).reshape(T, S)
+            ts_sh = np.zeros((S, T + 1), np.int64)
+            ts_sh[:, 1:] = np.cumsum(ts_counts.T, axis=1)
+            # permuted posting columns (stable sort keeps term-major order);
+            # df may be the cross-slice global override (term_df)
+            cols = (
+                local_docs,
+                s.post_tf[perm],
+                np.repeat(s.term_df(), t_count)[perm],
+                s.doc_lens_dense[s.post_docs[perm]],
+            )
+            p_pad = bucket_pad(max(int(np.diff(offs).max()), 1), steps) + BLOCK
+            out = []
+            for col, dt in zip(cols, (np.int32, np.float32, np.float32,
+                                      np.float32)):
+                st = np.zeros((S, p_pad), dt)
+                for si in range(S):
+                    a, b = int(offs[si]), int(offs[si + 1])
+                    st[si, : b - a] = col[a:b]
+                out.append(self.put_stacked(st))
+            return (*out, ts_sh)
+
+        return self._get_sharded(s, "str_sh", local_cap, build)
+
+    def sharded_phrase_stream(self, s: CommittedStringIndex, local_cap: int):
+        """K4's per-shard input: (terms, bits, bounds), each shard's slice
+        of ``phrase_stream_arrays``' doc-sorted stream in local doc ids:
+        its positions sorted by (doc, pos), stable, with their group bits,
+        and its per-doc CSR bounds int32 [local_cap + 1]. The bits never
+        look across a doc, so a shard's slice has the bits it has in the
+        whole stream."""
+
+        def build():
+            S = self.n_shards
+            steps = self.cfg.posting_bucket_steps
+            run_lens = np.diff(s.pos_starts)
+            pos_doc = np.repeat(s.post_docs.astype(np.int64), run_lens)
+            tcounts = np.diff(s.term_starts)
+            pos_term = np.repeat(
+                np.repeat(np.arange(len(tcounts), dtype=np.int32), tcounts),
+                run_lens,
+            )
+            perm, offs, local = self._shard_perm(pos_doc, local_cap, S)
+            pp_pad = bucket_pad(max(int(np.diff(offs).max()), 1), steps)
+            terms = self._alloc((pp_pad,), torch.int32)
+            bits = self._alloc((pp_pad,), torch.uint8)
+            bounds = self._alloc((local_cap + 1,), torch.int32)
+            for si in range(S):
+                a, b = int(offs[si]), int(offs[si + 1])
+                dev = terms[si].device
+                d_col = np.full(pp_pad, bm25_ops.PAD_DOC, np.int32)
+                d_col[: b - a] = local[a:b]
+                p_col = np.zeros(pp_pad, np.int32)
+                p_col[: b - a] = s.positions[perm[a:b]]
+                t_col = np.zeros(pp_pad, np.int32)
+                t_col[: b - a] = pos_term[perm[a:b]]
+                d_dev, p_dev, t_dev = bm25_ops.sort_phrase_stream(*(
+                    torch.as_tensor(c, device=dev) for c in (d_col, p_col,
+                                                             t_col)))
+                terms[si].copy_(t_dev)
+                bits[si].copy_(bm25_ops.phrase_static_bits(d_dev, p_dev))
+                bounds[si].copy_(bm25_ops.stream_doc_bounds(d_dev, local_cap))
+            return terms, bits, bounds
+
+        return self._get_sharded(s, "phrase_sh", local_cap, build)
+
+    def sharded_vector_arrays(self, v: CommittedVectorIndex, local_cap: int):
+        """(vecs [p_l, D], local vec_docs, vec_valid) per shard, p_l the
+        bucket of the largest shard's rows."""
+
+        def build():
+            S = self.n_shards
+            perm, offs, local_docs = self._shard_perm(
+                v.vec_docs.astype(np.int64), local_cap, S
+            )
+            p_l = bucket_pad(max(int(np.diff(offs).max()), 1),
+                             self.cfg.posting_bucket_steps)
+            dtype = (torch.bfloat16 if self.cfg.vector_dtype == "bfloat16"
+                     else torch.float32)
+            # pad rows point at the shard's LAST doc slot, not doc 0: the
+            # dense scorer zeroes them via `valid` either way, and the fused
+            # kNN (vector_topk_fast) needs row_docs ascending; zero-vector
+            # pads at local_cap-1 add no score and no match count
+            docs_st = np.full((S, p_l), local_cap - 1, np.int32)
+            valid_st = np.zeros((S, p_l), np.float32)
+            for si in range(S):
+                a, b = int(offs[si]), int(offs[si + 1])
+                docs_st[si, : b - a] = local_docs[a:b]
+                valid_st[si, : b - a] = 1.0
+            return (self._rows_by_shard(v.vecs, perm, offs, p_l, dtype),
+                    self.put_stacked(docs_st), self.put_stacked(valid_st))
+
+        return self._get_sharded(v, "vec_sh", local_cap, build)
+
+    def sharded_vector_rowstarts(self, v: CommittedVectorIndex, local_cap: int):
+        """Per-shard doc -> row-range CSR (int32 [S][local_cap + 1]) over
+        the row partition of sharded_vector_arrays: the multi-vector fused
+        kNN's exact-rescore input (real rows only; doc-ascending layouts)."""
+
+        def build():
+            S = self.n_shards
+            _, offs, local_docs = self._shard_perm(
+                v.vec_docs.astype(np.int64), local_cap, S
+            )
+            starts = np.zeros((S, local_cap + 1), np.int64)
+            for si in range(S):
+                a, b = int(offs[si]), int(offs[si + 1])
+                counts = np.bincount(local_docs[a:b], minlength=local_cap)
+                np.cumsum(counts, out=starts[si, 1:])
+            return self.put_stacked(starts.astype(np.int32))
+
+        return self._get_sharded(v, "vec_rowstarts_sh", local_cap, build)
+
+    def sharded_vector_int8_arrays(self, v: CommittedVectorIndex,
+                                   local_cap: int):
+        """(codes int8, scales f32, local vec_docs, vec_valid) per shard:
+        the reference's quantization of the rows, on the device a chunk at
+        a time; pad rows are zeros (and invalid)."""
+
+        def build():
+            from ..ops.quant import quantize_int8
+
+            S = self.n_shards
+            perm, offs, local_docs = self._shard_perm(
+                v.vec_docs.astype(np.int64), local_cap, S
+            )
+            p_l = bucket_pad(max(int(np.diff(offs).max()), 1),
+                             self.cfg.posting_bucket_steps)
+            codes = self._alloc((p_l, v.dimension), torch.int8)
+            scales = self._alloc((p_l,), torch.float32)
+            docs_st = np.zeros((S, p_l), np.int32)
+            valid_st = np.zeros((S, p_l), np.float32)
+            chunk = 1 << 17
+            for si in range(S):
+                a, b = int(offs[si]), int(offs[si + 1])
+                rows = perm[a:b]
+                dev = codes[si].device
+                for lo in range(0, len(rows), chunk):
+                    got = np.asarray(v.vecs[rows[lo:lo + chunk]], np.float32)
+                    c8, sc = quantize_int8(torch.as_tensor(got, device=dev))
+                    codes[si][lo:lo + len(got)] = c8
+                    scales[si][lo:lo + len(got)] = sc
+                docs_st[si, : b - a] = local_docs[a:b]
+                valid_st[si, : b - a] = 1.0
+            return (codes, scales, self.put_stacked(docs_st),
+                    self.put_stacked(valid_st))
+
+        return self._get_sharded(v, "vec_int8_sh", local_cap, build)
+
+    def sharded_ivfpq_arrays(self, v: CommittedVectorIndex, local_cap: int):
+        """Per-shard IVF-PQ layout for the mesh serving path: (codes, PQ
+        codebooks, rows, centroids, lists, list lens, local vec_docs,
+        rotation | None). Centroids, codebooks and the rotation are one
+        copy on the mesh's first device (the programs replicate them);
+        rows partition by owning doc shard and each shard re-derives its
+        slice of every cluster's member list as LOCAL row ids. The union
+        over shards of a cluster's members is the global list, so probing
+        the same clusters scans the same candidate rows as the
+        single-device path."""
+
+        def build():
+            S = self.n_shards
+            P = v.n_vectors
+            perm, offs, local_docs = self._shard_perm(
+                v.vec_docs.astype(np.int64), local_cap, S
+            )
+            owner = v.vec_docs.astype(np.int64) // local_cap
+            # global row -> position in the shard-packed row arrays
+            inv = np.empty(P, np.int64)
+            inv[perm] = np.arange(P, dtype=np.int64)
+            local_row = inv - offs[owner]
+
+            p_l = max(int(np.diff(offs).max()), 1)
+            p_l = max(((p_l + 127) // 128) * 128, 128)
+            m = v.pq_codes.shape[1]
+            codes_st = np.zeros((S, p_l, m), np.uint8)
+            docs_st = np.zeros((S, p_l), np.int32)
+            cp = v.pq_codes[perm]
+            for si in range(S):
+                a, b = int(offs[si]), int(offs[si + 1])
+                codes_st[si, : b - a] = cp[a:b]
+                docs_st[si, : b - a] = local_docs[a:b]
+
+            # per-(shard, cluster) member lists in local row ids; a row's
+            # cluster is its argmax assignment (build_ivf_lists never
+            # spills), matching the single-device scan
+            cl = v.ivf_lists.shape[0]
+            lens_g = v.ivf_lens.astype(np.int64)
+            flat_rows = np.concatenate(
+                [v.ivf_lists[c, : lens_g[c]] for c in range(cl)]
+            ) if lens_g.sum() else np.zeros(0, np.int64)
+            flat_rows = flat_rows.astype(np.int64)
+            flat_cluster = np.repeat(np.arange(cl, dtype=np.int64), lens_g)
+            s_of = owner[flat_rows]
+            key = flat_cluster * S + s_of
+            order2 = np.argsort(key, kind="stable")
+            counts2 = np.bincount(key, minlength=cl * S).reshape(cl, S)
+            cap_sh = int(counts2.max()) if counts2.size else 1
+            cap_sh = max(((cap_sh + 127) // 128) * 128, 128)
+            lists_st = np.zeros((S, cl, cap_sh), np.int32)
+            lens_st = counts2.T.astype(np.int32).copy()  # [S, cl]
+            if len(flat_rows):
+                ksort = key[order2]
+                group_starts = np.searchsorted(ksort, np.arange(cl * S))
+                pos_in_group = np.arange(len(ksort), dtype=np.int64) - (
+                    np.repeat(group_starts, counts2.reshape(-1))
+                )
+                lists_st[
+                    s_of[order2], flat_cluster[order2], pos_in_group
+                ] = local_row[flat_rows[order2]].astype(np.int32)
+            dtype = (torch.bfloat16 if self.cfg.vector_dtype == "bfloat16"
+                     else torch.float32)
+            return (
+                self.put_stacked(codes_st),
+                self.put(np.asarray(v.pq_codebooks, np.float32)),
+                self._rows_by_shard(v.vecs, perm, offs, p_l, dtype),
+                self.put(np.asarray(v.ivf_cents, np.float32)),
+                self.put_stacked(lists_st),
+                self.put_stacked(lens_st),
+                self.put_stacked(docs_st),
+                self._pq_rotation(v),
+            )
+
+        return self._get_sharded(v, "vec_ivfpq_sh", local_cap, build)
+
+    def _sharded_columns(self, idx, cols, fills, local_cap: int):
+        """(value columns..., local docs, valid) per shard for a committed
+        (value, doc) column index, padded to a bucket of the largest
+        shard's entries."""
+        S = self.n_shards
+        steps = self.cfg.posting_bucket_steps
+        n = len(idx.docs)
+        perm, offs, local_docs = self._shard_perm(
+            idx.docs.astype(np.int64), local_cap, S)
+        n_pad = bucket_pad(max(int(np.diff(offs).max()) if n else 1, 1), steps)
+        outs = [np.full((S, n_pad), f, np.asarray(c).dtype)
+                for c, f in zip(cols, fills)]
+        docs_st = np.zeros((S, n_pad), np.int32)
+        valid_st = np.zeros((S, n_pad), bool)
+        permuted = [np.asarray(c)[perm] for c in cols]
+        for si in range(S):
+            a, b = int(offs[si]), int(offs[si + 1])
+            for o, c in zip(outs, permuted):
+                o[si, : b - a] = c[a:b]
+            docs_st[si, : b - a] = local_docs[a:b]
+            valid_st[si, : b - a] = True
+        return (*[self.put_stacked(o) for o in outs],
+                self.put_stacked(docs_st), self.put_stacked(valid_st))
+
+    def sharded_keyword_arrays(self, kidx: CommittedKeywordIndex,
+                               local_cap: int):
+        """(value ids f32 (-1 pad), local docs, valid) per shard."""
+        return self._get_sharded(kidx, "kw_sh", local_cap, lambda: (
+            self._sharded_columns(kidx, [np.asarray(kidx.ids, np.float32)],
+                                  [-1.0], local_cap)))
+
+    def sharded_number_arrays(self, nidx: CommittedNumberIndex,
+                              local_cap: int):
+        """(values f32 (NaN pad), local docs, valid) per shard."""
+        return self._get_sharded(nidx, "num_sh", local_cap, lambda: (
+            self._sharded_columns(nidx, [np.asarray(nidx.vals, np.float32)],
+                                  [np.nan], local_cap)))
+
+    def sharded_bool_arrays(self, b: CommittedBoolIndex, cap_s: int):
+        """(true mask, has mask) per shard, f32 [S][cap_s / S]."""
+
+        def build():
+            S = self.n_shards
+            true_mask = np.zeros(cap_s, np.float32)
+            has_mask = np.zeros(cap_s, np.float32)
+            n = min(len(b.true_mask), cap_s)
+            true_mask[:n] = b.true_mask[:n]
+            has_mask[:n] = b.has_mask[:n]
+            return (self.put_stacked(true_mask.reshape(S, -1)),
+                    self.put_stacked(has_mask.reshape(S, -1)))
+
+        return self._get_sharded(b, "bool_sh", cap_s, build)
+
 
 @dataclasses.dataclass
 class _StringField:
@@ -582,9 +987,6 @@ class CollectionReader:
         self.description = description
         self.default_locale = default_locale
         self.cfg = gpu_cfg or GpuConfig()
-        if self.cfg.mesh_shape:
-            raise NotImplementedError("mesh_shape: sharded serving is a "
-                                      "later port slice")
 
         self.fields: Dict[int, TypedField] = {}
         self.field_by_name: Dict[str, int] = {}
@@ -643,6 +1045,17 @@ class CollectionReader:
         m = self._device.put(self._alive[:cap])
         self._alive_device = (self._alive_version, cap, m)
         return m
+
+    def _alive_mask_sharded(self, cap_s: int):
+        cached = getattr(self, "_alive_device_sh", None)
+        if cached and cached[0] == self._alive_version and cached[1] == cap_s:
+            return cached[2]
+        m = np.zeros(cap_s, np.float32)
+        n = min(len(self._alive), cap_s)
+        m[:n] = self._alive[:n]
+        dev = self._device.put_stacked(m.reshape(self._device.n_shards, -1))
+        self._alive_device_sh = (self._alive_version, cap_s, dev)
+        return dev
 
     # -- op application (reference: collection.rs:608-681) --------------------
 
@@ -1240,6 +1653,549 @@ class CollectionReader:
             return fusion_ops.minmax_fuse(ft, vec)
         return fusion_ops.rrf_fuse(ft, vec)
 
+    # -- sharded serving path (mesh mode; reference :2185-2816) ----------------
+    #
+    # With gpu.mesh_shape configured, queries run as the mesh programs of
+    # parallel/sharded_engine.py over per-shard committed layouts: local
+    # scoring on each shard's device (K1, K4, K2 + K3 or K6 once per shard),
+    # per-shard top-k, one gathered merge on the mesh's first device. Flat
+    # IVF and flat PQ stay on the single-device path (the reference keeps
+    # them replicated); so do search_batch and the fused program, which run
+    # with whole arrays on the mesh's first device.
+
+    def _sharded_ctx(self):
+        mesh = self._device.mesh
+        S = self._device.n_shards
+        local_cap = -(-self.capacity // S)
+        return mesh, S, local_cap, local_cap * S
+
+    def _use_sharded(self, params: SearchParams) -> bool:
+        if self._device.mesh is None or self._device.n_shards < 2:
+            return False
+        if params.mode != SearchModeKind.FULLTEXT and self.cfg.vector_index in (
+            "ivf", "pq",
+        ):
+            # flat PQ and plain IVF stay replicated; ivf_pq has its own
+            # sharded layout (sharded_ivfpq_arrays)
+            return False
+        return True
+
+    class _MaskAt:
+        """Dict-backed stand-in for a dense host mask, valid only at the
+        uncommitted window's doc ids (gathered from the sharded mask)."""
+
+        __slots__ = ("m",)
+
+        def __init__(self, mapping: Dict[int, float]) -> None:
+            self.m = mapping
+
+        def __getitem__(self, i) -> float:
+            return self.m[int(i)]
+
+    @staticmethod
+    def _in_split(docs: List[int], ctx) -> None:
+        """Raise _ShardsMoved for a window doc past the search's split."""
+        if docs and max(docs) >= ctx[3]:
+            raise _ShardsMoved(f"window doc {max(docs)} is past {ctx[3]}")
+
+    def _host_mask_at(self, mask, docs, masked: bool, ctx):
+        """A sharded mask's values at (few) global doc ids, without
+        pulling [cap] to the host; None when nothing is masked."""
+        from ..parallel import sharded_engine as se
+
+        if not masked:
+            return None
+        doc_list = [int(d) for d in docs]
+        if not doc_list:
+            return self._MaskAt({})
+        self._in_split(doc_list, ctx)
+        vals = se.gather_values(ctx[0], mask, doc_list, ctx[2])
+        return self._MaskAt({d: float(v) for d, v in zip(doc_list, vals)})
+
+    def _scatter_window(self, scores, out: Dict[int, float], ctx):
+        """Scatter a host-scored window {doc: value} onto the shards that
+        own its docs (sharded_engine.scatter_add)."""
+        from ..parallel import sharded_engine as se
+
+        docs = list(out.keys())
+        self._in_split(docs, ctx)
+        return se.scatter_add(ctx[0], scores, docs, list(out.values()),
+                              ctx[2])
+
+    def _filter_mask_sharded(self, where: Dict[str, Any], ctx):
+        from ..parallel import sharded_engine as se
+
+        mesh, S, local_cap, cap_s = ctx
+        mask = self._alive_mask_sharded(cap_s)
+        for field_name, filt in where.items():
+            fid = self.field_by_name.get(field_name)
+            if fid is None:
+                raise ValueError(f'Cannot filter by "{field_name}": unknown field')
+            f = self.fields[fid]
+            if isinstance(filt, NumberFilter):
+                if f.type != ValueType.NUMBER:
+                    raise ValueError(f'"{field_name}" is not a number field')
+                nf = self._number[fid]
+                vals, docs, valid = self._device.sharded_number_arrays(
+                    nf.committed, local_cap
+                )
+                if filt.op == "eq":
+                    m = se.number_eq_mask(mesh, vals, docs, valid,
+                                          float(np.float32(filt.value)),
+                                          local_cap)
+                else:
+                    lo, hi, lx, hx = nf.committed.filter_bounds(filt)
+                    m = se.number_range_mask(
+                        mesh, vals, docs, valid, float(np.float32(lo)),
+                        float(np.float32(hi)), bool(lx), bool(hx), local_cap,
+                    )
+                unc = (
+                    nf.uncommitted.filter_docs(filt)
+                    if not nf.uncommitted.is_empty else set()
+                )
+            elif isinstance(filt, StringFilter):
+                if f.type != ValueType.STRING:
+                    raise ValueError(f'"{field_name}" is not a string field')
+                kf = self._keyword[fid]
+                wanted_vals = (filt.value,) if filt.op == "eq" else filt.value
+                wanted_ids = [
+                    kf.committed.id_of(v)
+                    for v in wanted_vals
+                    if kf.committed.id_of(v) is not None
+                ]
+                if wanted_ids and not kf.committed.is_empty:
+                    ids, docs, valid = self._device.sharded_keyword_arrays(
+                        kf.committed, local_cap
+                    )
+                    wanted = np.full(max(len(wanted_vals), 1), -1.0, np.float32)
+                    wanted[: len(wanted_ids)] = wanted_ids
+                    m = se.keyword_set_mask(mesh, ids, docs, valid, wanted,
+                                            local_cap)
+                else:
+                    m = self._device.zeros_sharded(cap_s)
+                unc = (
+                    kf.uncommitted.filter_docs(filt)
+                    if not kf.uncommitted.is_empty else set()
+                )
+            elif isinstance(filt, BoolFilter):
+                if f.type != ValueType.BOOL:
+                    raise ValueError(f'"{field_name}" is not a bool field')
+                bf = self._bool[fid]
+                true_mask, has_mask = self._device.sharded_bool_arrays(
+                    bf.committed, cap_s
+                )
+                m = (true_mask if filt.value
+                     else has_mask.map(lambda h, t: h * (1.0 - t), true_mask))
+                unc = (
+                    bf.uncommitted.filter_docs(filt.value)
+                    if not bf.uncommitted.is_empty else set()
+                )
+            else:
+                raise TypeError(f"unknown filter {filt!r}")
+            if unc:
+                m = self._scatter_window(m, dict.fromkeys(unc, 1.0),
+                                         ctx).map(torch.clamp, None, 1.0)
+            mask = mask.map(filter_ops.combine_masks, m)
+        return mask
+
+    def _fulltext_scores_sharded(
+        self,
+        term: str,
+        properties: Optional[List[str]],
+        boost: Dict[str, float],
+        filter_mask,
+        masked: bool,
+        ctx,
+    ):
+        """Sharded fulltext scores [S][local_cap]: per committed field, K1
+        once per shard over the shard's aligned block plan (from the
+        per-shard CSR term offsets) and, for phrases, K4 once per shard
+        over the shard's phrase stream; the host-scored uncommitted window
+        scatters onto the shards that own its docs."""
+        from ..parallel import sharded_engine as se
+
+        mesh, S, local_cap, cap_s = ctx
+        if not term.strip():
+            return filter_mask.map(lambda m: m.to(torch.float32))
+        scores = self._device.zeros_sharded(cap_s)
+        tokens_cache: Dict[str, Tuple[List[str], List[str]]] = {}
+        for fid in self._string_properties(properties):
+            f = self.fields[fid]
+            locale = f.locale or self.default_locale
+            cached = tokens_cache.get(locale)
+            if cached is None:
+                cached = query_expansion(get_parser(locale), term)
+                tokens_cache[locale] = cached
+            tokens, stems = cached
+            if not tokens:
+                continue
+            field_boost = float(boost.get(f.name, 1.0))
+            sf = self._string[fid]
+            gi = sf.committed.global_info() + sf.uncommitted.global_info()
+            phrase = len(tokens) > 1
+
+            committed = sf.committed
+            token_spans, n_surf = expanded_spans(
+                committed.term_dict, tokens, stems
+            )
+            if token_spans:
+                ts_global = committed.term_starts
+                g_total = int(
+                    sum(ts_global[hi] - ts_global[lo] for lo, hi in token_spans)
+                )
+                if g_total > 0:
+                    d_docs, d_tf, d_ni, d_plens, ts_sh = (
+                        self._device.sharded_string_arrays(committed, local_cap)
+                    )
+                    # per-shard aligned block plans (host, O(tokens * shards))
+                    lo_sh = [[int(ts_sh[si, lo]) for lo, hi in token_spans]
+                             for si in range(S)]
+                    len_sh = [[int(ts_sh[si, hi] - ts_sh[si, lo])
+                               for lo, hi in token_spans] for si in range(S)]
+                    need = max(bm25_ops.aligned_blocks_needed(lens)
+                               for lens in len_sh)
+                    nb = bucket_pad(max(need, 1), bm25_ops.PLAN_BUCKETS)
+                    plans = np.zeros((S, 3, nb), np.int32)
+                    for si in range(S):
+                        plans[si] = bm25_ops.build_block_plan_aligned(
+                            lo_sh[si], len_sh[si], nb)
+                    raw = se.blocked_bm25(
+                        mesh, d_docs, d_tf, d_ni, d_plens, plans,
+                        1.0 if phrase else field_boost,
+                        float(np.float32(gi.avgdl)),
+                        float(np.float32(gi.total_documents)),
+                        filter_mask, local_cap, nb, masked,
+                    )
+                    if phrase:
+                        # surface spans only: stems never drive phrase
+                        # adjacency (query_expansion contract)
+                        terms, bits, bounds = self._device.sharded_phrase_stream(
+                            committed, local_cap)
+                        boost_by_doc = se.blocked_phrase_boost(
+                            mesh, terms, bits, bounds,
+                            self._phrase_spans(token_spans, n_surf),
+                            field_boost, local_cap,
+                        )
+                        raw = raw.map(torch.mul, boost_by_doc)
+                    scores = scores.map(torch.add, raw)
+
+            if not sf.uncommitted.is_empty:
+                host_out: Dict[int, float] = {}
+                fm = self._host_mask_at(
+                    filter_mask, sf.uncommitted.doc_lens.keys(), masked, ctx)
+                sf.uncommitted.search(
+                    tokens, field_boost, gi, fm, self.deleted, host_out,
+                    exact_tokens=stems,
+                )
+                if host_out:
+                    scores = self._scatter_window(scores, host_out, ctx)
+        return scores
+
+    def _vector_scores_sharded(
+        self,
+        term: str,
+        ai_service,
+        filter_mask,
+        ctx,
+        raw_vec=None,
+        limit: int = 10,
+    ):
+        from ..parallel import sharded_engine as se
+
+        mesh, S, local_cap, cap_s = ctx
+        scores = self._device.zeros_sharded(cap_s)
+        by_model: Dict[str, List[int]] = {}
+        for fid, f in self.fields.items():
+            if f.type == ValueType.EMBEDDING and f.model:
+                by_model.setdefault(f.model, []).append(fid)
+        matched_dim = False
+        for model, fids in by_model.items():
+            if raw_vec is not None:
+                fids = [f for f in fids if self._field_vec_dim(f) == len(raw_vec)]
+                if not fids:
+                    continue
+                matched_dim = True
+            qn = np.asarray(
+                self._resolve_query_vec(model, term, ai_service, raw_vec),
+                np.float32)
+            for fid in fids:
+                vf = self._vector[fid]
+                if not vf.committed.is_empty:
+                    c = vf.committed
+                    if (self.cfg.vector_index == "ivf_pq" and c.has_ivf
+                            and c.has_pq):
+                        (codes, books, vecs, cents, lists, lens, docs,
+                         rot) = self._device.sharded_ivfpq_arrays(c, local_cap)
+                        expand = c.tuned_expand or self.cfg.ivf_candidate_expand
+                        cand_k = min(max(limit, 10) * expand, c.n_vectors)
+                        nprobe = min(c.tuned_nprobe or self.cfg.ivf_nprobe,
+                                     int(lists.shape[0]))
+                        raw = se.ivfpq_scores(
+                            mesh, codes, books, vecs, cents, lists, lens,
+                            docs, rot, qn, filter_mask, local_cap, nprobe,
+                            cand_k, expand, c.pq_residual,
+                        )
+                    elif self.cfg.vector_index == "int8":
+                        codes, scales, docs, valid = (
+                            self._device.sharded_vector_int8_arrays(
+                                c, local_cap))
+                        raw = se.vector_scores_int8(
+                            mesh, codes, scales, docs, valid, qn,
+                            filter_mask, local_cap)
+                    else:
+                        vecs, docs, valid = self._device.sharded_vector_arrays(
+                            c, local_cap)
+                        raw = se.vector_scores(mesh, vecs, docs, valid, qn,
+                                               filter_mask, local_cap)
+                    scores = scores.map(torch.add, raw)
+                if not vf.uncommitted.is_empty:
+                    host_out: Dict[int, float] = {}
+                    fm = self._host_mask_at(
+                        filter_mask, {d for d, _ in vf.uncommitted.entries},
+                        True, ctx)
+                    vf.uncommitted.search(qn, fm, self.deleted, host_out)
+                    if host_out:
+                        scores = self._scatter_window(scores, host_out, ctx)
+        if raw_vec is not None and by_model and not matched_dim:
+            # the single-device path's error: a silent empty result would
+            # hide a malformed client vector
+            dims = sorted(
+                {self._field_vec_dim(f) for fids in by_model.values()
+                 for f in fids}
+            )
+            raise ValueError(
+                f"query vector has dimension {len(raw_vec)}; collection "
+                f"embedding fields have {dims}"
+            )
+        return scores
+
+    def _search_sharded(
+        self, params: SearchParams, ai_service
+    ) -> Tuple[List[Tuple[int, float]], int, Optional[Dict[str, FacetResult]]]:
+        from ..parallel import sharded_engine as se
+
+        # one split of the doc space for the whole search
+        ctx = self._sharded_ctx()
+        mesh, S, local_cap, cap_s = ctx
+        filter_mask = self._filter_mask_sharded(params.where, ctx)
+        masked = bool(params.where) or bool(self.deleted)
+        k = min(params.limit, cap_s)
+        matched_sh = None
+        positive = lambda x: (x > 0).to(torch.float32)  # noqa: E731
+        if params.mode == SearchModeKind.FULLTEXT:
+            ft = self._fulltext_scores_sharded(
+                params.term, params.properties, params.boost, filter_mask,
+                masked, ctx,
+            )
+            out = se.topk_with_count(mesh, ft, k, local_cap)
+            if params.facets:
+                matched_sh = ft.map(positive)
+        elif params.mode == SearchModeKind.VECTOR:
+            fast = self._sharded_vector_fast(params, ai_service, ctx)
+            if fast is not None:
+                return fast
+            vec = self._vector_scores_sharded(
+                params.term, ai_service, filter_mask, ctx,
+                raw_vec=params.vector, limit=params.limit,
+            )
+            out = se.topk_with_count(mesh, vec, k, local_cap)
+            if params.facets:
+                matched_sh = vec.map(positive)
+        else:
+            ft = self._fulltext_scores_sharded(
+                params.term, params.properties, params.boost, filter_mask,
+                masked, ctx,
+            )
+            vec = self._vector_scores_sharded(
+                params.term, ai_service, filter_mask, ctx, limit=params.limit
+            )
+            if params.fusion == HybridFusion.MINMAX:
+                out = se.minmax_topk(mesh, ft, vec, k, local_cap)
+            else:
+                out = se.rrf_topk(mesh, ft, vec, k, se.rrf_candidate_count(k),
+                                  local_cap)
+            if params.facets:
+                # fused scores are > 0 exactly where either modality
+                # matched (both fusions are over non-negative scores)
+                matched_sh = ft.map(
+                    lambda a, b: ((a > 0) | (b > 0)).to(torch.float32), vec)
+        facets = (
+            self.compute_facets_sharded(matched_sh, params.facets, ctx)
+            if matched_sh is not None
+            else None
+        )
+        vals, gids, count = (_to_host(t) for t in out)
+        ranked = [(int(d), float(s)) for d, s in zip(gids, vals) if s > 0.0]
+        return ranked, int(count), facets
+
+    def _sharded_vector_fast(
+        self, params: SearchParams, ai_service, ctx
+    ) -> Optional[Tuple[List[Tuple[int, float]], int, None]]:
+        """Mesh vector-mode fast path: the fused kNN on each shard (K2 +
+        K3, or K6 for chunked docs) + the O(S*k) merge
+        (``sharded_engine.vector_topk_fast``), never building the dense
+        sharded [cap] score array. Taken when nothing downstream needs
+        dense scores (no facets, filters or deletes) and the committed
+        segment is the whole corpus (empty uncommitted window), on any
+        device: the reference's backend and ``use_pallas`` gates are gone,
+        as on the single-device path. Everything else keeps the dense
+        sharded pipeline."""
+        if (
+            params.facets
+            or params.where
+            or self.deleted
+            or self.cfg.vector_index != "exact"
+            or params.limit > 128
+        ):
+            return None
+        emb = [
+            fid for fid, f in self.fields.items()
+            if f.type == ValueType.EMBEDDING and f.model
+        ]
+        if len(emb) != 1:
+            return None
+        vf = self._vector[emb[0]]
+        c = vf.committed
+        if c.is_empty or not vf.uncommitted.is_empty:
+            return None
+        single = getattr(c, "_single_vec_per_doc", None)
+        if single is None:
+            single = len(np.unique(c.vec_docs)) == c.n_vectors
+            c._single_vec_per_doc = single
+        if not single and not _multivec_fast_eligible(c):
+            return None
+        from ..parallel import sharded_engine as se
+        from ..server import metrics as m
+
+        mesh, S, local_cap, cap_s = ctx
+        qn = self._resolve_query_vec(
+            self.fields[emb[0]].model, params.term, ai_service, params.vector
+        )
+        if params.vector is not None and len(qn) != c.dimension:
+            raise ValueError(
+                f"query vector has dimension {len(qn)}; collection "
+                f"embedding fields have [{c.dimension}]"
+            )
+        vecs, rowdocs, _valid = self._device.sharded_vector_arrays(c, local_cap)
+        p_l = int(vecs.shape[0])
+        bn = 2048
+        while p_l % bn:
+            bn //= 2
+        k = (params.limit if params.limit <= 16
+             else bucket_pad(params.limit, (16, 128)))
+        k = min(k, local_cap)
+        if single:
+            rowstarts, m_max = None, 1
+        else:
+            rowstarts = self._device.sharded_vector_rowstarts(c, local_cap)
+            m_max = 1 << max(0, int(np.ceil(np.log2(c._max_chunks))))
+        vals, gids, count = se.vector_topk_fast(
+            mesh, vecs, rowdocs, rowstarts, np.asarray(qn, np.float32),
+            local_cap, k, bn, m_max, p_l, not single,
+        )
+        m.VECTOR_PATH.inc(path="fast_sharded")
+        ranked = [
+            (int(d), float(s))
+            for d, s in zip(_to_host(gids), _to_host(vals)) if s > 0.0
+        ][: params.limit]
+        return ranked, int(count), None
+
+    def compute_facets_sharded(self, matched, facet_defs: Dict[str, Any],
+                               ctx) -> Dict[str, FacetResult]:
+        """Facets over the mesh: per-shard masked reductions summed on the
+        mesh's first device (sharded_engine's facet programs), the dense
+        compute_facets restated over shard-local layouts. Uncommitted
+        windows overlay on the host, reading the matched mask only at
+        their (few) doc ids."""
+        from ..parallel import sharded_engine as se
+
+        mesh, S, local_cap, cap_s = ctx
+        out: Dict[str, FacetResult] = {}
+        for field_name, fdef in facet_defs.items():
+            fid = self.field_by_name.get(field_name)
+            if fid is None:
+                raise ValueError(f"unknown facet field {field_name}")
+            ftype = self.fields[fid].type
+            if isinstance(fdef, NumberFacetDefinition):
+                if ftype != ValueType.NUMBER:
+                    raise ValueError(
+                        f'"{field_name}" is not a number field (facet shape'
+                        " does not match the field type)"
+                    )
+                nf = self._number[fid]
+                lows = np.asarray([float(r.low) for r in fdef.ranges],
+                                  np.float32)
+                highs = np.asarray([float(r.high) for r in fdef.ranges],
+                                   np.float32)
+                vals, docs, valid = self._device.sharded_number_arrays(
+                    nf.committed, local_cap)
+                counts = _to_host(se.number_facet_counts(
+                    mesh, vals, docs, valid, lows, highs, matched, local_cap,
+                )).copy()
+                if not nf.uncommitted.is_empty:
+                    pairs = list(nf.uncommitted.pairs)
+                    mk = self._host_mask_at(
+                        matched, {d for _, d in pairs}, True, ctx)
+                    for i, r in enumerate(fdef.ranges):
+                        for v, d in pairs:
+                            if float(r.low) <= v <= float(r.high) and mk[d] > 0:
+                                counts[i] += 1
+                values = {r.key: int(c) for r, c in zip(fdef.ranges, counts)}
+                out[field_name] = FacetResult(count=len(values), values=values)
+            elif isinstance(fdef, StringFacetDefinition):
+                if ftype != ValueType.STRING:
+                    raise ValueError(
+                        f'"{field_name}" is not a string field (facet shape'
+                        " does not match the field type)"
+                    )
+                kf = self._keyword[fid]
+                agg: Dict[str, int] = {}
+                if not kf.committed.is_empty:
+                    ids, docs, valid = self._device.sharded_keyword_arrays(
+                        kf.committed, local_cap)
+                    counts = _to_host(se.keyword_facet_counts(
+                        mesh, ids, docs, valid, matched,
+                        kf.committed.n_values))
+                    for vid, c in enumerate(counts):
+                        if c > 0:
+                            agg[kf.committed.values[vid]] = int(c)
+                if not kf.uncommitted.is_empty:
+                    pairs = list(kf.uncommitted.pairs)
+                    mk = self._host_mask_at(
+                        matched, {d for _, d in pairs}, True, ctx)
+                    for v, d in pairs:
+                        if mk[d] > 0:
+                            agg[v] = agg.get(v, 0) + 1
+                top = sorted(agg.items(), key=lambda kv: (-kv[1], kv[0]))[
+                    : fdef.limit
+                ]
+                out[field_name] = FacetResult(count=len(agg), values=dict(top))
+            elif isinstance(fdef, BoolFacetDefinition):
+                if ftype != ValueType.BOOL:
+                    raise ValueError(
+                        f'"{field_name}" is not a bool field (facet shape'
+                        " does not match the field type)"
+                    )
+                bf = self._bool[fid]
+                true_mask, has_mask = self._device.sharded_bool_arrays(
+                    bf.committed, cap_s)
+                tc, fc = _to_host(se.bool_facet_counts(
+                    mesh, true_mask, has_mask, matched)).tolist()
+                if not bf.uncommitted.is_empty:
+                    with bf.uncommitted._lk:
+                        tdocs = list(bf.uncommitted.true_docs)
+                        fdocs = list(bf.uncommitted.false_docs)
+                    mk = self._host_mask_at(matched, tdocs + fdocs, True, ctx)
+                    tc += sum(1 for d in tdocs if mk[d] > 0)
+                    fc += sum(1 for d in fdocs if mk[d] > 0)
+                values = {}
+                if fdef.true:
+                    values["true"] = int(tc)
+                if fdef.false:
+                    values["false"] = int(fc)
+                out[field_name] = FacetResult(count=len(values), values=values)
+        return out
+
     # -- batched serving (reference: collection_read.py:1867-2183) -----------
 
     def search_vector_batch(
@@ -1770,6 +2726,12 @@ class CollectionReader:
                 return None  # nothing committed: the window path is cheap
             sfids = tuple(keep)
         if mode != "fulltext":
+            # mesh mode keeps the ANN modes on their replicated or sharded
+            # paths, as the reference does (its ANN device caches are
+            # single-chip layouts)
+            if (self.cfg.vector_index != "exact"
+                    and self._device.mesh is not None):
+                return None
             vfids = [
                 fid for fid, f in self.fields.items()
                 if f.type == ValueType.EMBEDDING and f.model
@@ -1854,11 +2816,13 @@ class CollectionReader:
         ts_host = committed.term_starts
 
         # Zipf-head terms score via precomputed dense rows; light terms
-        # keep the blocked scan. Live windows keep the scan (rows embed
-        # avgdl, which moves with every window insert).
+        # keep the blocked scan. Mesh mode keeps the scan, as the
+        # reference does (its rows would replicate per device); live
+        # windows keep it too (rows embed avgdl, which moves with every
+        # window insert).
         dense_rows = None
         d_sel = d_w = None
-        if sf.uncommitted.is_empty:
+        if self._device.mesh is None and sf.uncommitted.is_empty:
             dense_rows, row_by_term = self._device.dense_term_rows(
                 committed, cap, gi.avgdl
             )
@@ -2211,10 +3175,14 @@ class CollectionReader:
             gi_avgdl, gi_n = gi.avgdl, gi.total_documents
             field_boost = float(p0.boost.get(f.name, 1.0))
             ts_host = committed.term_starts
-            # windows are empty by eligibility, so avgdl is commit-static
-            dense_rows, row_by_term = self._device.dense_term_rows(
-                committed, cap, gi_avgdl
-            )
+            row_by_term = None
+            if self._device.mesh is None:
+                # windows are empty by eligibility, so avgdl is
+                # commit-static; mesh mode keeps the scan (as
+                # _fused_string_field)
+                dense_rows, row_by_term = self._device.dense_term_rows(
+                    committed, cap, gi_avgdl
+                )
             term_df = committed.term_df() if dense_rows is not None else None
             row_plans: List[Tuple[List[int], List[int]]] = []
             row_sels: List[Tuple[List[int], List[float]]] = []
@@ -2348,6 +3316,13 @@ class CollectionReader:
         self, params: SearchParams, ai_service
     ) -> Tuple[List[Tuple[int, float]], int, Optional[Dict[str, FacetResult]]]:
         """Returns (ranked [(doc_id, score)], match count, facets)."""
+        if self._use_sharded(params):
+            for _ in range(8):
+                try:
+                    return self._search_sharded(params, ai_service)
+                except _ShardsMoved:
+                    pass  # a commit grew the capacity: split again
+            return self._search_sharded(params, ai_service)
         # the fused kNN outranks the fused dense program for eligible
         # (unfiltered exact) vector queries
         fast_fid = self._vector_fast_field(params)
@@ -2374,7 +3349,10 @@ class CollectionReader:
     def warmup(self, ai_service=None) -> int:
         """Build the device caches of every committed structure ahead of
         the first query (the reference compiles its programs here; the
-        port runs eagerly and compiles nothing). Returns caches built."""
+        port runs eagerly and compiles nothing). Returns caches built. A
+        mesh reader builds the per-shard layouts its mesh path reads."""
+        if self._device.mesh is not None and self._device.n_shards >= 2:
+            return self._warmup_sharded()
         n = 0
         cap = self.capacity
         for sf in self._string.values():
@@ -2404,6 +3382,46 @@ class CollectionReader:
             self._device.bool_arrays(bf.committed, cap)
             n += 1
         self._alive_mask_device()
+        return n
+
+    def _warmup_sharded(self) -> int:
+        _mesh, _S, local_cap, cap_s = self._sharded_ctx()
+        dc = self._device
+        n = 0
+        for sf in self._string.values():
+            c = sf.committed
+            if c.n_terms:
+                dc.sharded_string_arrays(c, local_cap)
+                dc.sharded_phrase_stream(c, local_cap)
+                n += 1
+        for vf in self._vector.values():
+            c = vf.committed
+            if c.is_empty:
+                continue
+            mode = self.cfg.vector_index
+            if mode in ("ivf", "pq"):
+                self._fused_vector_args(c, 10)  # replicated, first device
+            elif mode == "ivf_pq" and c.has_ivf and c.has_pq:
+                dc.sharded_ivfpq_arrays(c, local_cap)
+            elif mode == "int8":
+                dc.sharded_vector_int8_arrays(c, local_cap)
+            else:
+                dc.sharded_vector_arrays(c, local_cap)
+                if (len(np.unique(c.vec_docs)) != c.n_vectors
+                        and _multivec_fast_eligible(c)):
+                    dc.sharded_vector_rowstarts(c, local_cap)
+            n += 1
+        for nf in self._number.values():
+            dc.sharded_number_arrays(nf.committed, local_cap)
+            n += 1
+        for kf in self._keyword.values():
+            if not kf.committed.is_empty:
+                dc.sharded_keyword_arrays(kf.committed, local_cap)
+                n += 1
+        for bf in self._bool.values():
+            dc.sharded_bool_arrays(bf.committed, cap_s)
+            n += 1
+        self._alive_mask_sharded(cap_s)
         return n
 
     # -- cross-slice global statistics (multislice DFS mode) ------------------

@@ -28,9 +28,8 @@ header (admin.rs:33-45), search/answer/actions = ``?api-key=`` query param
 (search.rs:31-48).
 
 Port of ``orama_core_tpu/server/http.py``: the same routes, auth, load
-shedding and SSE pump over the port's engine. A route that reaches a part
-not ported yet (``NotImplementedError``) answers 501 with the reason, not
-a 500.
+shedding and SSE pump over the port's engine. A route that reaches a
+``NotImplementedError`` answers 501 with the reason, not a 500.
 """
 
 from __future__ import annotations
@@ -279,7 +278,6 @@ def _make_handler(orama):
                 status = 400
                 self._send(400, {"error": str(e)})
             except NotImplementedError as e:
-                # a part of the reference this package does not run yet
                 status = 501
                 self._send(501, {"error": f"not implemented: {e}"})
             except Exception as e:  # pragma: no cover

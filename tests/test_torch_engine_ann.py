@@ -270,15 +270,22 @@ def test_search_batch_on_ann_equals_per_row(tmp_path, mode):
 
 
 def test_mesh_shape_still_raises():
+    """Sharded serving is ported (tests/test_torch_engine_mesh.py): under
+    every ANN index a ``mesh_shape`` reader constructs, with the
+    reference's routing: IVF-PQ vector queries ride the mesh, flat IVF and
+    flat PQ ones stay on the single-device path, fulltext always shards."""
     from orama_core_tpu_torch.config import GpuConfig
     from orama_core_tpu_torch.engine.collection_read import CollectionReader
 
+    vec = PortParams.from_json({"term": "x", "mode": "vector"})
     for mode in ANN_MODES:
         CollectionReader("c", "r", None, GpuConfig(device="cpu",
                                                    vector_index=mode))
-        with pytest.raises(NotImplementedError, match="mesh_shape"):
-            CollectionReader("c", "r", None, GpuConfig(
-                device="cpu", vector_index=mode, mesh_shape=(2, 1)))
+        rd = CollectionReader("c", "r", None, GpuConfig(
+            device="cpu", vector_index=mode, mesh_shape=(2, 1)))
+        assert rd._device.n_shards == 2
+        assert rd._use_sharded(vec) == (mode == "ivf_pq")
+        assert rd._use_sharded(PortParams.from_json({"term": "x"}))
 
 
 def test_cuda_build_never_falls_back_to_cpu():

@@ -166,14 +166,15 @@ def test_int8_and_ann_modes_at_construction():
     CollectionReader("c", "rk", None, GpuConfig(device="cpu",
                                                 vector_index="int8"))
     # the ANN modes construct (tests/test_torch_engine_ann.py serves
-    # them); sharded serving still raises under every index
+    # them), and so does a mesh reader under every index
+    # (tests/test_torch_engine_mesh.py serves it)
     for mode in ("int8", "ivf", "pq", "ivf_pq"):
         rd = CollectionReader("c", "rk", None,
                               GpuConfig(device="cpu", vector_index=mode))
         assert rd.cfg.vector_index == mode
-        with pytest.raises(NotImplementedError, match="mesh_shape"):
-            CollectionReader("c", "rk", None, GpuConfig(
-                device="cpu", vector_index=mode, mesh_shape=(2, 1)))
+        rd = CollectionReader("c", "rk", None, GpuConfig(
+            device="cpu", vector_index=mode, mesh_shape=(2, 1)))
+        assert rd._device.n_shards == 2 and rd.cfg.vector_index == mode
 
 
 def test_int8_reference_data_dir_loads_into_port(tmp_path):

@@ -235,3 +235,85 @@ def test_remote_backend_without_grpc_names_the_package(tmp_path, monkeypatch):
         setattr(cfg.ai, key, "127.0.0.1:1" if key == "remote_url" else 0)
         with pytest.raises(ImportError, match="grpc"):
             build_orama(cfg, start_background=False, device="cpu")
+
+
+def test_parallel_imports_no_jax():
+    """``parallel/`` (mesh, sharded programs, multi-slice router) names no
+    JAX module in its sources, and importing it loads none; the gRPC slice
+    transport is the one module of it that needs ``grpc``."""
+    par = os.path.join(PKG, "parallel")
+    names = sorted(n for n in os.listdir(par) if n.endswith(".py"))
+    assert {"mesh.py", "sharded_engine.py", "sharded_search.py",
+            "multislice.py", "slice_grpc.py"} <= set(names)
+    for name in names:
+        mods = {m.split(".")[0] for m in _imported_modules(
+            os.path.join(par, name))}
+        assert not mods & {"jax", "jaxlib", "orama_core_tpu"}, (name, mods)
+        assert ("grpc" in mods) == (name == "slice_grpc.py"), (name, mods)
+    code = (
+        "import sys\n"
+        "import orama_core_tpu_torch.parallel.mesh\n"
+        "import orama_core_tpu_torch.parallel.sharded_engine\n"
+        "import orama_core_tpu_torch.parallel.sharded_search\n"
+        "import orama_core_tpu_torch.parallel.multislice\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'orama_core_tpu', 'grpc')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.dirname(PKG) + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    out = subprocess.run(
+        [sys.executable, "-c", code], env=env, capture_output=True,
+        text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_mesh_search_loads_no_grpc_or_jax(tmp_path):
+    """A mesh engine (``mesh_shape=(4, 1)``, four shards on the CPU)
+    commits and serves fulltext, phrase, vector, filtered + faceted and
+    hybrid queries through the mesh path without ``grpc``,
+    ``google.protobuf`` or JAX in the process: the card's machine has
+    neither of the first two."""
+    code = (
+        "import sys\n"
+        "from orama_core_tpu_torch import build_orama\n"
+        "from orama_core_tpu_torch.config import OramaxConfig\n"
+        "from orama_core_tpu_torch.types import SearchParams\n"
+        "cfg = OramaxConfig()\n"
+        "cfg.writer_side.data_dir = 'w'; cfg.reader_side.data_dir = 'r'\n"
+        "cfg.gpu.mesh_shape = (4, 1)\n"
+        "e = build_orama(cfg, start_background=False, device='cpu')\n"
+        "e.write_side.create_collection('master', 'c', 'r', 'w')\n"
+        "e.flush()\n"
+        "e.write_side.write('c', [{'id': str(i), 'body': f'doc {i} word{i % 7}"
+        " hello world', 'n': i} for i in range(40)], 'w')\n"
+        "e.commit()\n"
+        "rd = e.read_side._reader('c')\n"
+        "for body in ({'term': 'hello'}, {'term': 'hello world'},\n"
+        "             {'term': 'word3', 'mode': 'vector'},\n"
+        "             {'term': 'word3', 'mode': 'vector', 'where': {'n': {'gte': 5}},\n"
+        "              'facets': {'n': {'ranges': [{'from': 0, 'to': 20}]}}},\n"
+        "             {'term': 'word3', 'mode': 'hybrid'}):\n"
+        "    p = SearchParams.from_json(body)\n"
+        "    assert rd._use_sharded(p), body\n"
+        "    r = e.read_side.search('c', p, 'r')\n"
+        "    assert r.count > 0, (body, r)\n"
+        "e.close()\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('grpc', 'jax',"
+        " 'jaxlib', 'orama_core_tpu') or m.startswith('google.protobuf')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.dirname(PKG) + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().endswith("ok")

@@ -497,3 +497,145 @@ def test_ann_ops_on_card_match_cpu(dtype):
                      rotation=rot.cuda())
     assert torch.equal(got[1].cpu(), want[1])
     torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-5, atol=1e-6)
+
+
+# -- the mesh programs: K1, K2 + K3, K4 and K6 once per shard -----------------
+
+
+def _mesh_inputs(mesh, device, seed=41):
+    """Per-shard layouts, on ``mesh``, of one seeded string index and of a
+    single- and a multi-vector index, from the port's own device cache
+    (``_DeviceCache`` over ``mesh``): 4 shards whose vector rows pad to
+    3,072 (a multiple of 1,024, not of 2,048), so K2 and K6 tile them with
+    1,024-row blocks."""
+    from orama_core_tpu_torch.config import GpuConfig
+    from orama_core_tpu_torch.engine.collection_read import _DeviceCache
+    from orama_core_tpu_torch.index import (
+        CommittedStringIndex, CommittedVectorIndex, UncommittedStringIndex,
+    )
+
+    rng = np.random.default_rng(seed)
+    S, local_cap, d = len(mesh.data_devices), 2500, 384
+    cache = _DeviceCache(GpuConfig(device=device, mesh_shape=(S, 1),
+                                   posting_bucket_steps=(1024, 3072, 16384)))
+    cache.mesh = mesh
+    cache.device = mesh.root
+    unc = UncommittedStringIndex()
+    for doc in range(S * local_cap - 7):
+        n = int(rng.integers(3, 40))
+        terms = {}
+        for pos, w in enumerate(rng.zipf(1.3, n) % 300):
+            terms.setdefault(f"t{w:03d}", []).append(pos)
+        unc.insert(doc, n, {t: tuple(p) for t, p in terms.items()})
+    sidx = CommittedStringIndex.empty().merge(unc, S * local_cap, set())
+    single = CommittedVectorIndex(
+        dimension=d, vecs=rng.standard_normal((S * local_cap, d)).astype(
+            np.float32), vec_docs=np.arange(S * local_cap, dtype=np.int32))
+    n_docs_mv = S * 1000  # 2-3 rows a doc: ~2,500 rows a shard
+    nch = rng.integers(2, 4, n_docs_mv)
+    mv_docs = np.repeat(np.arange(n_docs_mv, dtype=np.int32), nch)
+    multi = CommittedVectorIndex(
+        dimension=d, vecs=rng.standard_normal((len(mv_docs), d)).astype(
+            np.float32), vec_docs=mv_docs)
+    return cache, sidx, single, multi, local_cap, rng
+
+
+def _mesh_run(mesh, device):
+    """Every per-shard kernel program of the mesh path on ``mesh``: the
+    outputs (on the host) and the launches they made."""
+    from orama_core_tpu_torch.ops import _cuda, bm25
+    from orama_core_tpu_torch.parallel import sharded_engine as se
+
+    cache, sidx, single, multi, local_cap, rng = _mesh_inputs(mesh, device)
+    S = len(mesh.data_devices)
+    out = {}
+    _cuda.reset_launches()
+    d_docs, d_tf, d_ni, d_plens, ts_sh = cache.sharded_string_arrays(
+        sidx, local_cap)
+    spans = [sidx.term_dict.prefix_range(t) for t in ("t001", "t002", "t01")]
+    nb = bm25.PLAN_BUCKETS[2]
+    plans = np.stack([np.stack(bm25.build_block_plan_aligned(
+        [int(ts_sh[s, lo]) for lo, hi in spans],
+        [int(ts_sh[s, hi] - ts_sh[s, lo]) for lo, hi in spans], nb))
+        for s in range(S)])
+    mask = cache._alloc((local_cap,), torch.float32, 1.0)
+    out["k1"] = se.blocked_bm25(mesh, d_docs, d_tf, d_ni, d_plens, plans,
+                                1.3, 20.0, float(S * local_cap), mask,
+                                local_cap, nb, True).to_host()
+    terms, bits, bounds = cache.sharded_phrase_stream(sidx, local_cap)
+    spans_a = np.zeros((4, 2), np.int32)
+    spans_a[:len(spans)] = spans
+    out["k4"] = se.blocked_phrase_boost(mesh, terms, bits, bounds, spans_a,
+                                        2.0, local_cap).to_host()
+    q = rng.standard_normal(384).astype(np.float32)
+    q /= np.linalg.norm(q)
+    # k x 4 sub-blocks of 32 rows (x 4 for K6's over-fetch) stay below
+    # the shard's 3,072 rows, so the kernels run, not the dense branch
+    for name, idx, cap, k, multivec in (("k2k3", single, local_cap, 10, False),
+                                        ("k6", multi, 1000, 5, True)):
+        vecs, rowdocs, _ = cache.sharded_vector_arrays(idx, cap)
+        rs = cache.sharded_vector_rowstarts(idx, cap) if multivec else None
+        p_l = int(vecs.shape[0])
+        assert p_l == 3072
+        vals, gids, count = se.vector_topk_fast(
+            mesh, vecs, rowdocs, rs, q, cap, k, 1024, 4, p_l, multivec)
+        out[name] = (vals.cpu().numpy(), gids.cpu().numpy(), int(count))
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return out, dict(_cuda.LAUNCHES)
+
+
+def _check_mesh_against_cpu(mesh):
+    from orama_core_tpu_torch.parallel.mesh import make_mesh
+
+    S = len(mesh.data_devices)
+    got, launches = _mesh_run(mesh, "cuda")
+    want, _ = _mesh_run(make_mesh((S, 1), device="cpu"), "cpu")
+    # K1 sums with atomics (another order of addition)
+    np.testing.assert_allclose(got["k1"], want["k1"], rtol=1e-5, atol=1e-6)
+    assert np.count_nonzero(want["k1"]) > 100
+    np.testing.assert_array_equal(got["k4"], want["k4"])
+    assert np.count_nonzero(want["k4"] > 2.0) > 0
+    for name in ("k2k3", "k6"):
+        np.testing.assert_array_equal(got[name][1], want[name][1])
+        np.testing.assert_allclose(got[name][0], want[name][0], rtol=0,
+                                   atol=1e-4)
+        # a sim within rounding of zero may change sign
+        assert abs(got[name][2] - want[name][2]) <= 2
+    # one launch per shard of each kernel
+    assert launches == {"bm25_scan": S, "knn_subblock_max": S,
+                        "knn_rescore": S, "phrase_counts": S,
+                        "knn_subblock_max_int8": 0,
+                        "knn_subblock_max_mv": S}, launches
+
+
+@pytest.mark.gpu
+def test_mesh_kernels_per_shard_on_one_card():
+    """Four shards on card 0: K1, K4, K2 + K3 and K6 launch once per shard
+    through the mesh programs (``parallel/sharded_engine.py``) and give
+    what the same programs give on the CPU's plain versions, on shards
+    whose vector rows are not a multiple of 2,048."""
+    _need_card()
+    from orama_core_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh((4, 1), devices=["cuda:0"] * 4)
+    assert mesh.shared
+    _check_mesh_against_cpu(mesh)
+
+
+@pytest.mark.gpu
+def test_mesh_launches_on_each_shards_card():
+    """Shards spread over two cards: each shard's kernels run under its
+    own card (``mesh.on_device``: the wrappers launch on the current
+    device's stream and read its attributes), and the results equal the
+    CPU's. Needs two cards; skips on one."""
+    _need_card()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    from orama_core_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh((4, 1), device="cuda")
+    assert [d.index for d in mesh.data_devices] == [
+        s * torch.cuda.device_count() // 4 for s in range(4)]
+    assert not mesh.shared
+    _check_mesh_against_cpu(mesh)
