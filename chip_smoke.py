@@ -128,6 +128,22 @@ the card): prefill of 512 tokens, decode ms per token over 64 tokens
 against the bytes a token reads, GiB, and the cached decode's logits
 against a full forward.
 
+Then the tp phase (one ``{"tp": ...}`` line): the tensor-parallel encoder
+(``param_specs`` placed by ``parallel.mesh.shard_params``, every model
+shard stacked on card 0) at both widths and lengths on meshes (2, 2) and
+(1, 4), bf16 rows against the single device's (cosine >= 0.999) and f32
+within 2e-5; the decoder at Qwen2.5-3B's width on (1, 2) and (1, 4),
+teacher-forced through the single device's 64 greedy tokens (relative
+L2 of the logits within ``TP_NOISE_FACTOR`` times the single device's
+bf16-against-f32 distance at every step, the (1, 1) control exact, the
+first token equal), f32 at 2 layers within ``DECODER_REL_TOL``; ms and
+device work items per forward and per token beside the single device's,
+GiB a shard. The single-device capacity race on the card (8 searching
+threads while a writer grows the capacity past three buckets and
+commits; K1 and K4 launched, hits held to a CPU reader of the state
+read) and ``utils/benchgen.py``'s corpus at 1M x 384 against the CPU's
+rows close it.
+
 With ``--profile``, each engine mode and each batch shape is also traced
 with torch.profiler (device busy share, top ops by device time and, per
 engine mode, by host self time). The
@@ -154,6 +170,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -464,6 +481,16 @@ def phase_kernels(reader, rng, probe_lib, compare_lib=None):
         require(torch.allclose(got, want, rtol=1e-5, atol=1e-6),
                 f"K1 disagrees with its plain version at {kw}: max err {err}")
         require(int((got > 0).sum()) > 100_000, "K1 scored too few docs")
+    # the doc bound: a row half the capacity, so about half of the plan's
+    # doc ids lie past it and are dropped, by the kernel as by its twin
+    args, kw = calls[0]
+    half = dict(kw, n_docs=cap // 2)
+    got = bm25.bm25_scores_blocked_aligned(*args, **half)
+    want = bm25.bm25_scores_blocked_aligned_plain(*args, **half)
+    torch.cuda.synchronize()
+    require(got.shape == (cap // 2,) and torch.allclose(
+        got, want, rtol=1e-5, atol=1e-6), "K1 wrote past its row or "
+            f"disagrees there: max err {(got - want).abs().max().item()}")
     ms = time_ms([lambda a=a, k=k: bm25.bm25_scores_blocked_aligned(*a, **k)
                   for a, k in calls], 40)
     pad_ms = time_ms([lambda a=a, k=k: bm25.bm25_scores_blocked_aligned(
@@ -475,7 +502,9 @@ def phase_kernels(reader, rng, probe_lib, compare_lib=None):
         "bm25_scan", err, ms, pms,
         bytes_moved=n_post * 16 + np.mean(n_blocks) * 12 + cap * 4,
         ops=n_post * 20, peak_ops=F32_FLOPS))
-    log(f"K1 ok: {n_posts} postings, err {err:.3g}, {ms:.4f} ms; plans "
+    log(f"K1 ok: {n_posts} postings, err {err:.3g}, {ms:.4f} ms (0.0197 "
+        "before the row bound, on an H100 80GB HBM3 at 700 W), doc ids past "
+        f"a row dropped; plans "
         f"padded to buckets {[k['n_blocks'] for _a, k in padded]} (from "
         f"{n_blocks} blocks): {pad_ms:.4f} ms")
     probe = k1_probes(probe_lib, calls, spans_k1, d_docs, cap)
@@ -2823,6 +2852,33 @@ QWEN25_3B = dict(vocab_size=151936, hidden=2048, layers=36, heads=16,
 DECODER_REL_TOL = 1e-4
 
 
+def qwen_params(layers=None, dtype=None, device="cuda"):
+    """(config, seeded parameters on the card) at Qwen2.5-3B's width:
+    q/k/v biases, lm_head tied to the embeddings as f32; ``layers`` cuts
+    the depth, ``dtype`` the working type (bf16)."""
+    import torch
+
+    from orama_core_tpu_torch.models import llm
+
+    conf = dict(QWEN25_3B)
+    if layers is not None:
+        conf["layers"] = layers
+    if dtype is not None:
+        conf["dtype"] = dtype
+    cfg = llm.LlmConfig(**conf)
+    g = torch.Generator(device).manual_seed(0)
+    params = llm.init_params(cfg, g, device)
+    for layer in params["layers"]:
+        for name, width in (("bq", cfg.heads), ("bk", cfg.kv_heads),
+                            ("bv", cfg.kv_heads)):
+            layer[name] = (torch.randn(width * cfg.head_dim, generator=g,
+                                       device=device) * 0.02).to(cfg.dtype)
+    params["lm_head"] = None  # free the drawn head before tying it
+    params["lm_head"] = params["tok_emb"].float().t().contiguous()
+    torch.cuda.synchronize()
+    return cfg, params
+
+
 def decoder_width(prompt=512, new=64):
     """The decoder at Qwen2.5-3B's width, batch 1, seeded bf16 weights
     made on the card (q/k/v biases, lm_head tied to the embeddings as f32):
@@ -2837,18 +2893,8 @@ def decoder_width(prompt=512, new=64):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base_mem = torch.cuda.memory_allocated()
-    cfg = llm.LlmConfig(**QWEN25_3B)
-    g = torch.Generator("cuda").manual_seed(0)
-    params = llm.init_params(cfg, g, "cuda")
+    cfg, params = qwen_params()
     hd = cfg.head_dim
-    for layer in params["layers"]:
-        for name, width in (("bq", cfg.heads), ("bk", cfg.kv_heads),
-                            ("bv", cfg.kv_heads)):
-            layer[name] = (torch.randn(width * hd, generator=g, device="cuda")
-                           * 0.02).to(cfg.dtype)
-    params["lm_head"] = None  # free the drawn head before tying it
-    params["lm_head"] = params["tok_emb"].float().t().contiguous()
-    torch.cuda.synchronize()
     weight_bytes = sum(
         t.numel() * t.element_size() for t in
         [params["tok_emb"], params["out_norm"], params["lm_head"]]
@@ -2942,6 +2988,530 @@ def decoder_width(prompt=512, new=64):
            "argmax_equal": same_argmax}
     log(f"decoder {rec}")
     return rec
+
+
+# -- tensor parallelism over the mesh's model axis (models/tp.py) -----------
+
+TP_ENCODER_MESHES = ((2, 2), (1, 4))
+TP_DECODER_MESHES = ((1, 2), (1, 4))
+# The decoder's teacher-forced bound: once the row split rounds one
+# partial product differently, every later bf16 rounding of the sharded
+# and the single-device runs differs, so they drift apart as two
+# independent bf16 evaluations of one function, about sqrt(2) times
+# either's distance from the f32 run, whatever the number of extra
+# roundings (2 (M - 1) a layer). The bound is twice the single device's
+# bf16-against-f32 relative L2 at the same step (a CPU calibration at 4
+# and 12 layers of a narrower model measured at most 1.27 times it); a
+# wrong split moves the logits by O(1). The sharded code path with one
+# shard, mesh (1, 1), is held to 0 exactly: it adds nothing but the
+# split's roundings.
+TP_NOISE_FACTOR = 2.0
+
+
+def kernel_launches(fn) -> int:
+    """Work items (kernels, copies, fills) one call of ``fn`` puts on the
+    card, from torch.profiler's device events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if str(getattr(e, "device_type", "")).endswith("CUDA"))
+
+
+def placed_gib(tree):
+    """(GiB of one model shard's split leaves, GiB of the replicated
+    leaves) of a tree placed by ``shard_params``."""
+    from orama_core_tpu_torch.parallel.mesh import Placed
+
+    split = rep = 0
+    stack = [tree]
+    while stack:
+        x = stack.pop()
+        if isinstance(x, dict):
+            stack += list(x.values())
+        elif isinstance(x, list):
+            stack += x
+        elif isinstance(x, Placed):
+            t = x.parts[0]
+            n = t.numel() * t.element_size()
+            if x.split:
+                split += n // t.shape[0]
+            else:
+                rep += n
+    return split / 2**30, rep / 2**30
+
+
+def tp_encoder(batch=64, iters=3, device="cuda"):
+    """The encoder under ``param_specs`` at jax-minilm's and bge-small's
+    widths (encoder_throughput's seeded weights and batches), every model
+    shard on this card: bf16 rows against the single device's by cosine
+    (>= 0.999, the single-device bf16 tests' bound), f32 at 64 x 128
+    within 2e-5 max abs (the reference's TP tolerance), ms and device
+    work items per forward beside the single device's, GiB a shard."""
+    import dataclasses
+
+    import torch
+
+    from orama_core_tpu_torch.models import encoder as enc
+    from orama_core_tpu_torch.parallel.mesh import make_mesh, shard_params
+
+    rows = []
+    for name, layers in (("jax-minilm", 6), ("bge-small", 12)):
+        cfg = dataclasses.replace(enc.MINILM, layers=layers)
+        params = enc.init_params(
+            cfg, torch.Generator(device).manual_seed(layers), device)
+        placed = {shape: shard_params(make_mesh(shape, device=device),
+                                      params, enc.param_specs(cfg))
+                  for shape in TP_ENCODER_MESHES}
+        for length in (128, 512):
+            g = torch.Generator(device).manual_seed(length)
+            ids = torch.randint(1, cfg.vocab_size, (batch, length),
+                                generator=g, device=device)
+            mask = torch.ones(batch, length, device=device)
+            with torch.inference_mode():
+                single = lambda: enc.encode(params, cfg, ids, mask)  # noqa: E731
+                want = single()
+                single_ms = time_ms(single, iters)
+                single_n = kernel_launches(single)
+                for shape, sp in placed.items():
+                    tp_fn = lambda sp=sp: enc.encode(sp, cfg, ids, mask)  # noqa: E731
+                    got = tp_fn()
+                    cos = float(torch.nn.functional.cosine_similarity(
+                        got, want, dim=-1).min())
+                    require(got.shape == want.shape
+                            and bool(torch.isfinite(got).all()) and cos >= 0.999,
+                            f"tp encoder {name} x {length} at {shape}: "
+                            f"min cosine {cos}")
+                    split_gib, rep_gib = placed_gib(sp)
+                    rows.append({
+                        "model": name, "layers": layers, "batch": batch,
+                        "tokens": length, "mesh": list(shape),
+                        "units": len(sp["tok_emb"].layout.units),
+                        "bf16_min_cosine": cos, "ms": time_ms(tp_fn, iters),
+                        "single_ms": single_ms,
+                        "launches": kernel_launches(tp_fn),
+                        "single_launches": single_n,
+                        "shard_split_gib": split_gib,
+                        "replicated_gib": rep_gib})
+                    log(f"tp encoder {rows[-1]}")
+        del params, placed
+    # f32 (the reference's TP test's type) at jax-minilm x 128
+    cfg = dataclasses.replace(enc.MINILM, dtype=torch.float32)
+    params = enc.init_params(cfg, torch.Generator(device).manual_seed(6),
+                             device)
+    g = torch.Generator(device).manual_seed(128)
+    ids = torch.randint(1, cfg.vocab_size, (batch, 128), generator=g,
+                        device=device)
+    mask = torch.ones(batch, 128, device=device)
+    f32 = {}
+    with torch.inference_mode():
+        want = enc.encode(params, cfg, ids, mask)
+        for shape in TP_ENCODER_MESHES:
+            sp = shard_params(make_mesh(shape, device=device), params,
+                              enc.param_specs(cfg))
+            got = enc.encode(sp, cfg, ids, mask)
+            f32[str(shape)] = float((got - want).abs().max())
+            require(f32[str(shape)] <= 2e-5,
+                    f"tp encoder f32 at {shape}: max abs {f32[str(shape)]}")
+    del params
+    torch.cuda.empty_cache()
+    return {"rows": rows, "f32_max_abs": f32}
+
+
+def _rel_l2(a, b):
+    import torch
+
+    return (torch.linalg.vector_norm(a - b, dim=-1)
+            / torch.linalg.vector_norm(b, dim=-1))
+
+
+def teacher_forced(llm, params, cfg, ids, toks, device="cuda"):
+    """f32 logits [n, V]: at the prompt's last position, then at each of
+    ``toks[:, :n - 1]`` fed one at a time through the cache."""
+    import torch
+
+    prompt = ids.shape[1]
+    n = toks.shape[1]
+    with torch.inference_mode():
+        cache = llm.make_cache(cfg, 1, device, params=params)
+        pos = torch.arange(prompt, dtype=torch.int32, device=device)[None]
+        logits, cache = llm.forward(params, cfg, ids, pos, cache, 0)
+        out = [logits[0, -1].float()]
+        for i in range(n - 1):
+            lg, cache = llm.forward(
+                params, cfg, toks[:, i:i + 1],
+                torch.tensor([[prompt + i]], dtype=torch.int32,
+                             device=device), cache, prompt + i)
+            out.append(lg[0, -1].float())
+    del cache
+    return torch.stack(out)
+
+
+def tp_decoder(prompt=512, new=64, device="cuda"):
+    """The decoder under ``param_specs`` (biases split with their
+    columns) at Qwen2.5-3B's width, full depth, every shard on this card.
+    Teacher-forced: a 512-token prefill, then the single device's 64
+    greedy tokens fed to both; at every step the sharded logits' relative
+    L2 against the single device's stays within TP_NOISE_FACTOR times the
+    single device's bf16-against-f32 distance, the first token is equal,
+    and the (1, 1) control is exact. f32 at 2 layers of the width within
+    DECODER_REL_TOL. Greedy-sequence agreement is reported only. Prefill
+    and decode ms (host clock), device work items per decode token, GiB a
+    shard."""
+    import torch
+
+    from orama_core_tpu_torch.models import llm
+    from orama_core_tpu_torch.parallel.mesh import make_mesh, shard_params
+
+    torch.cuda.empty_cache()
+    cfg, params = qwen_params(device=device)
+    specs = llm.param_specs(cfg, with_bias=True)
+    gen = torch.Generator(device).manual_seed(1)
+    ids = torch.randint(0, 151643, (1, prompt), generator=gen, device=device,
+                        dtype=torch.int32)
+    plen = torch.tensor([prompt], dtype=torch.int32)
+    eos = cfg.vocab_size  # never drawn: every run decodes all its tokens
+
+    def timed(p):
+        def run(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks = llm.generate(p, cfg, ids, plen, max_new=n, eos_id=eos)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3, toks
+
+        run(2)
+        prefill = min(run(1)[0] for _ in range(3))
+        full_ms, toks = run(new)
+        step = llm.make_cache(cfg, 1, device, params=p)
+        pos = torch.arange(prompt, dtype=torch.int32, device=device)[None]
+        with torch.inference_mode():
+            llm.forward(p, cfg, ids, pos, step, 0)
+            one = lambda: llm.forward(  # noqa: E731
+                p, cfg, toks[:, :1], pos[:, -1:] + 1, step, prompt)
+            launches = kernel_launches(one)
+        del step
+        return {"prefill_ms": prefill,
+                "decode_ms_per_token": (full_ms - prefill) / (new - 1),
+                "launches_per_token": launches}, toks
+
+    single, toks = timed(params)
+    require(toks.shape == (1, new) and bool((toks < eos).all()),
+            "tp decoder: bad single-device tokens")
+    want = teacher_forced(llm, params, cfg, ids, toks, device)
+    f32cfg = llm.LlmConfig(**{**QWEN25_3B, "dtype": torch.float32})
+    exact = llm.params_from_numpy(params, f32cfg, device)
+    noise = _rel_l2(want, teacher_forced(llm, exact, f32cfg, ids, toks, device))
+    del exact
+    torch.cuda.empty_cache()
+    ctrl = shard_params(make_mesh((1, 1), device=device), params, specs)
+    control = float(_rel_l2(teacher_forced(llm, ctrl, cfg, ids, toks, device),
+                            want).max())
+    del ctrl
+    require(control == 0.0, f"tp decoder: the (1, 1) control moved the "
+            f"logits by relative L2 {control}")
+    top2 = torch.topk(want[0], 2).values
+    rec = {"config": "Qwen/Qwen2.5-3B-Instruct width", "layers": cfg.layers,
+           "prompt": prompt, "new_tokens": new, "single": single,
+           "bf16_vs_f32_rel_l2": {"max": float(noise.max()),
+                                  "median": float(noise.median())},
+           "control_1x1_rel_l2": control,
+           "first_token_margin": float(top2[0] - top2[1]),
+           "noise_factor": TP_NOISE_FACTOR, "meshes": {}}
+    for shape in TP_DECODER_MESHES:
+        sp = shard_params(make_mesh(shape, device=device), params, specs)
+        got = teacher_forced(llm, sp, cfg, ids, toks, device)
+        rel = _rel_l2(got, want)
+        ratio = rel / noise
+        first = int(got[0].argmax())
+        require(bool(torch.isfinite(got).all())
+                and float(ratio.max()) <= TP_NOISE_FACTOR,
+                f"tp decoder {shape}: teacher-forced relative L2 "
+                f"{rel.tolist()} against the bound {TP_NOISE_FACTOR} x "
+                f"{noise.tolist()}")
+        require(first == int(toks[0, 0]), f"tp decoder {shape}: first token "
+                f"{first} against {int(toks[0, 0])}")
+        timing, tp_toks = timed(sp)
+        split_gib, rep_gib = placed_gib(sp)
+        plan_nkv = llm._plan(sp, cfg).nkv
+        cache_gib = (2 * cfg.layers * cfg.max_len * plan_nkv * cfg.head_dim
+                     * 2) / 2**30
+        rec["meshes"][str(shape)] = {
+            **timing, "units": len(sp["tok_emb"].layout.units),
+            "rel_l2_max": float(rel.max()),
+            "rel_l2_median": float(rel.median()),
+            "ratio_to_noise_max": float(ratio.max()),
+            "first_token_equal": True,
+            "greedy_tokens_equal_single": float(
+                (tp_toks == toks).float().mean()),
+            "shard_split_gib": split_gib, "replicated_gib": rep_gib,
+            "shard_cache_gib": cache_gib}
+        log(f"tp decoder {shape} {rec['meshes'][str(shape)]}")
+        del sp
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    # f32 at 2 layers of the width: prefill and 8 forced steps
+    cfg2, p2 = qwen_params(layers=2, dtype=torch.float32,
+                           device=device)
+    toks2 = toks[:, :9]
+    want2 = teacher_forced(llm, p2, cfg2, ids, toks2, device)
+    rec["f32_2_layers_rel_l2"] = {}
+    for shape in TP_DECODER_MESHES:
+        sp2 = shard_params(make_mesh(shape, device=device), p2,
+                           llm.param_specs(cfg2, True))
+        got2 = teacher_forced(llm, sp2, cfg2, ids, toks2, device)
+        r = float(_rel_l2(got2, want2).max())
+        rec["f32_2_layers_rel_l2"][str(shape)] = r
+        require(r <= DECODER_REL_TOL, f"tp decoder f32 at {shape}: relative "
+                f"L2 {r} (limit {DECODER_REL_TOL})")
+    del p2
+    torch.cuda.empty_cache()
+    return rec
+
+
+RACE_WORDS = ["solar", "wind", "cake", "qubit", "grid"]
+RACE_QUERIES = [{"term": "solar"}, {"term": "wind grid"},
+                {"term": "x", "mode": "vector"},
+                {"term": "qubit", "mode": "hybrid"},
+                ["solar", "qubit", "cake"], ["grid", "wind"]]
+
+
+def capacity_race(n_base=2000, n_threads=8, per_thread=12, seed=21,
+                  device="cuda"):
+    """The single-device reader on the card while its capacity grows
+    (tests/test_torch_capacity_race.py on the card): 8 threads search
+    (fulltext, phrase, vector, hybrid, batches) while a writer adds
+    documents past three 8,192-slot capacity buckets and commits after
+    each. Every search returns; a search during which no op landed (only
+    commits, or nothing) equals a CPU reader that replayed the writes up
+    to one of the points it could have pinned its view at; afterwards
+    every query equals the CPU reader of the last state. K1 and K4 run on
+    the card in the phase."""
+    import sys as _sys
+    import threading
+
+    import torch
+
+    from orama_core_tpu_torch.config import GpuConfig
+    from orama_core_tpu_torch.engine.collection_read import CollectionReader
+    from orama_core_tpu_torch.ops import _cuda
+    from orama_core_tpu_torch.oplog import (CreateFieldOp, IndexEmbeddingOp,
+                                            IndexStringOp, InsertDocumentOp)
+    from orama_core_tpu_torch.types import (SearchParams, TypedField,
+                                            ValueType)
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="race-", dir=os.path.join(ROOT, "build"))
+
+    def doc(i, words):
+        return [InsertDocumentOp("c", i, {"id": str(i)}),
+                IndexStringOp("c", i, 0, len(words),
+                              {w: (p,) for p, w in enumerate(words)}),
+                IndexEmbeddingOp("c", i, 1, (tuple(map(
+                    float, rng.standard_normal(16))),))]
+
+    events = [("op", CreateFieldOp("c", TypedField(0, "body", ValueType.STRING))),
+              ("op", CreateFieldOp("c", TypedField(1, "emb", ValueType.EMBEDDING,
+                                                   model="fake-small")))]
+    for i in range(n_base):
+        events += [("op", o) for o in doc(i, rng.choice(RACE_WORDS, 3))]
+    events.append(("commit", None))
+    n0 = len(events)
+    for r in (1, 2, 3):
+        for i in range(8192 * r, 8192 * r + 4):
+            events += [("op", o) for o in doc(i, RACE_WORDS)]
+        events.append(("commit", None))
+    commits = [0]
+
+    def play(reader, evs):
+        for kind, op in evs:
+            if kind == "op":
+                reader.apply(op)
+            else:
+                commits[0] += 1
+                reader.commit(os.path.join(work, str(commits[0])),
+                              offset=commits[0])
+
+    def reader_upto(n, device):
+        r = CollectionReader("c", "rk", None, GpuConfig(device=device))
+        play(r, events[:n])
+        return r
+
+    class _AI:
+        q = np.random.default_rng(3).standard_normal((1, 16)).astype(
+            np.float32)
+
+        def embed_query(self, model, texts):
+            return np.repeat(self.q, len(texts), axis=0)
+
+    ai = _AI()
+
+    def search(reader, body):
+        if isinstance(body, list):
+            return [r for r in reader.search_batch(
+                [SearchParams.from_json({"term": t}) for t in body], ai)]
+        return [reader.search(SearchParams.from_json(dict(body)), ai)[:2]]
+
+    def same(got, want):
+        """The hits of every row equal (check_hits: K1's atomics and the
+        card's products sum in another order), counts within 2 (a
+        similarity near 0 may change sign)."""
+        try:
+            require(len(got) == len(want), "race: rows")
+            for (g, gn), (w, wn) in zip(got, want):
+                check_hits(g, w, 1e-4, "race")
+                require(abs(gn - wn) <= 2, "race: count")
+        except SmokeFailure:
+            return False
+        return True
+
+    live = reader_upto(n0, device)
+    live.warmup()
+    for body in RACE_QUERIES:
+        search(live, body)
+    torch.cuda.synchronize()
+    before = dict(_cuda.LAUNCHES)
+    begun, done = [n0], [n0]
+    records, errors = [], []
+
+    def searcher(k):
+        try:
+            for j in range(per_thread):
+                body = RACE_QUERIES[(j + k) % len(RACE_QUERIES)]
+                b = done[0]
+                res = search(live, body)
+                records.append((b, begun[0], body, res))
+        except Exception as e:  # noqa: BLE001 - a failed search fails the phase
+            errors.append(repr(e))
+
+    def writer():
+        for i in range(n0, len(events)):
+            begun[0] = i + 1
+            play(live, events[i:i + 1])
+            done[0] = i + 1
+
+    old = _sys.getswitchinterval()
+    _sys.setswitchinterval(1e-5)
+    t0 = time.perf_counter()
+    try:
+        threads = [threading.Thread(target=searcher, args=(k,))
+                   for k in range(n_threads)] + [threading.Thread(target=writer)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        _sys.setswitchinterval(old)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: _cuda.LAUNCHES[k] - before.get(k, 0) for k in _cuda.LAUNCHES}
+    require(not any(t.is_alive() for t in threads), "race: a thread hung")
+    require(not errors, f"race: searches failed: {errors[:3]}")
+    require(live.capacity == 4 * 8192, f"race: capacity {live.capacity}")
+    cpu = {}
+    quiet = moved = 0
+    for b, a, body, res in records:
+        if all(kind == "commit" for kind, _ in events[b:a]):
+            quiet += 1
+            ok = False
+            for j in range(b, a + 1):
+                if j not in cpu:
+                    cpu[j] = reader_upto(j, "cpu")
+                if same(res, search(cpu[j], body)):
+                    ok = True
+                    break
+            require(ok, f"race: {body} read no state in [{b}, {a}]")
+        else:
+            moved += 1
+            for ranked, _n in res:
+                docs = [d for d, _ in ranked]
+                require(len(set(docs)) == len(docs)
+                        and all(0 <= d < live.capacity for d in docs),
+                        f"race: {body}: bad hits {docs[:5]}")
+    require(quiet > 0, "race: no search ran between two writes")
+    last = reader_upto(len(events), "cpu")
+    equal = 0
+    for body in RACE_QUERIES:
+        require(same(search(live, body), search(last, body)),
+                f"race: {body} differs from the CPU reader after the writes")
+        equal += 1
+    cached = {id(f.committed) for t in (live._string, live._vector,
+                                         live._number, live._keyword,
+                                         live._bool) for f in t.values()}
+    stale = [k for k in live._device._keepalive if k not in cached]
+    require(not stale, f"race: the device cache keeps {len(stale)} "
+            "superseded generations")
+    for k in ("bm25_scan", "phrase_counts"):
+        require(launches.get(k, 0) > 0, f"race: {k} never ran")
+    shutil.rmtree(work, ignore_errors=True)
+    rec = {"threads": n_threads, "searches": len(records),
+           "searches_without_writes": quiet, "searches_during_writes": moved,
+           "capacity": live.capacity, "wall_s": wall,
+           "queries_equal_after": equal,
+           "launches": {k: v for k, v in launches.items() if v}}
+    log(f"race {rec}")
+    return rec, launches
+
+
+def benchgen_check(n=1 << 20, d=384, salt=42, rows=8192,
+                   device="cuda"):
+    """utils/benchgen.py's corpus at 1M x 384 bf16 on the card, held to
+    the CPU's rows in three slices (start, middle, end): bf16 equal but
+    for elements one ulp apart (at most 0.1% of them), f32 within 2e-7."""
+    import torch
+
+    from orama_core_tpu_torch.utils.benchgen import hashed_unit_corpus
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    corpus = hashed_unit_corpus(n, d, salt, device=device)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    require(corpus.shape == (n, d) and corpus.dtype == torch.bfloat16,
+            "benchgen: bad corpus")
+    worst, share, f32_err = 0, 0.0, 0.0
+    for r0 in (0, n // 2, n - rows):
+        cpu = hashed_unit_corpus(n, d, salt, device="cpu",
+                                 rows=(r0, r0 + rows))
+        got = corpus[r0:r0 + rows].cpu()
+        ulps = (got.view(torch.int16).int() - cpu.view(torch.int16).int()).abs()
+        worst = max(worst, int(ulps.max()))
+        share = max(share, float((ulps > 0).float().mean()))
+        f32 = hashed_unit_corpus(n, d, salt, torch.float32, device,
+                                 rows=(r0, r0 + 64)).cpu()
+        f32_cpu = hashed_unit_corpus(n, d, salt, torch.float32, "cpu",
+                                     rows=(r0, r0 + 64))
+        f32_err = max(f32_err, float((f32 - f32_cpu).abs().max()))
+    require(worst <= 1 and share <= 1e-3 and f32_err <= 2e-7,
+            f"benchgen: card rows differ from the CPU's: {worst} ulp, share "
+            f"{share}, f32 {f32_err}")
+    del corpus
+    torch.cuda.empty_cache()
+    rec = {"rows": n, "dim": d, "ms": ms, "max_ulp": worst,
+           "ulp_share": share, "f32_max_abs": f32_err}
+    log(f"benchgen {rec}")
+    return rec
+
+
+def phase_tp(card):
+    """This slice's phase: the tensor-parallel encoder and decoder on the
+    card, the single-device capacity race, and the benchmark corpus
+    generator. Returns the ``{"tp": ...}`` record and the phase's kernel
+    launches (the race's K1 and K4)."""
+    t0 = time.perf_counter()
+    rec = {"encoder": tp_encoder(), "decoder": tp_decoder()}
+    race, launches = capacity_race()
+    rec["race"] = race
+    rec["benchgen"] = benchgen_check()
+    rec["wall_s"] = time.perf_counter() - t0
+    return rec, launches
 
 
 def phase_serve(card):
@@ -3069,6 +3639,10 @@ def main() -> int:
     for rec in records:
         rec["launches"] += serve_launches[rec["name"]]
     print(json.dumps({"serve": serve, "card": card}), flush=True)
+    tp, tp_launches = phase_tp(card)
+    for rec in records:
+        rec["launches"] += tp_launches.get(rec["name"], 0)
+    print(json.dumps({"tp": tp, "card": card}), flush=True)
     print(json.dumps({"p50_ms": p50, "card": card}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": records}), flush=True)

@@ -129,7 +129,10 @@ class GpuConfig:
     the mesh programs (``parallel/``): the shards go onto the visible
     cards in blocks, all of them on one card when there is one (on the
     CPU, all on the CPU), and the kernels launch once per shard. The
-    ``model`` axis is not used by the engine."""
+    engine does not read the ``model`` axis, as in the reference: it
+    serves the models' tensor-parallel layout (``param_specs`` of
+    models/encoder.py and models/llm.py, placed by
+    ``parallel.mesh.shard_params``)."""
 
     # "cuda" (one card) or "cpu" (plain torch versions of every kernel)
     device: str = "cuda"

@@ -46,6 +46,13 @@
 // complete. Everything else the kernel reads was written before the fill
 // began, as the stream orders the fill itself behind it.
 //
+// Doc ids: an add goes to out[doc] only for 0 <= doc < n_docs, the row
+// length the launch passes in; any other id is dropped, as the
+// reference's segment_sum drops an id outside [0, num_segments). The
+// engine sizes the row by the capacity its search pinned, which covers
+// every generation it reads, so nothing is dropped there; the bound keeps
+// a plan built from any other posting column inside the row.
+//
 // Batches: with a row id per plan block (row_id != NULL), one launch scans
 // the combined plan of a whole query batch (the reference's
 // hybrid_fused_topk_batch: each row's real blocks, then the pad blocks)
@@ -138,7 +145,11 @@ __global__ void __launch_bounds__(kThreads) bm25_scan_kernel(
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int jj = off[r] + e;
-          if (jj < elo[r] || jj >= ehi[r]) continue;
+          // a doc id outside [0, n_docs) is dropped, as the reference's
+          // segment_sum drops it: the add never leaves its output row
+          if (jj < elo[r] || jj >= ehi[r] ||
+              (unsigned long long)(unsigned)dd[e] >= (unsigned long long)n_docs)
+            continue;
           const float idf = log1pf(
               fmaxf((nfd - nn[e] + 0.5f) / (nn[e] + 0.5f), 0.0f));
           const float den = tt[e] + kK1 * (1.0f - kB + kB * ll[e] / avgdl_c);

@@ -37,6 +37,16 @@ mesh's first device. Flat IVF and flat PQ vector modes, ``search_batch``
 and the fused program run there too, with whole arrays, as the reference
 runs them as ordinary programs over its data-sharded arrays: the same
 results, nothing partitioned.
+
+Searches run without the apply lock, beside writes and commits.
+``search`` and ``search_batch`` each pin one view of the reader (``_View``:
+the fields, their (uncommitted, committed) containers, the tombstones and
+the capacity that covers those generations) and read only it, so every
+buffer, mask and kernel row of a search is sized by a capacity its
+generations fit in; a commit publishes its new containers in one step.
+A window doc past the pinned capacity (it arrived after the search
+began) raises ``_CapacityMoved`` and the search starts again on a new
+view, as the mesh path does for a doc past its split.
 """
 
 from __future__ import annotations
@@ -45,6 +55,7 @@ import dataclasses
 import logging
 import os
 import threading
+import weakref
 from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
@@ -172,10 +183,61 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
 # --- device cache ------------------------------------------------------------
 
 
-class _ShardsMoved(RuntimeError):
-    """A sharded search met a doc id past the capacity it split the doc
-    space by: a commit that grew the capacity landed during the search,
-    which then starts again with the new split."""
+class _CapacityMoved(RuntimeError):
+    """A search met a doc id past the capacity it pinned (a window doc
+    that arrived after the search began, or on the mesh path a doc past
+    the split of the doc space it took): the search starts again with a
+    new view."""
+
+
+class _WindowMask:
+    """A host mask of the pinned capacity as the uncommitted windows'
+    searches read it, one doc at a time: a window doc past it raises
+    ``_CapacityMoved``."""
+
+    __slots__ = ("m",)
+
+    def __init__(self, m: np.ndarray) -> None:
+        self.m = m
+
+    def __getitem__(self, i) -> float:
+        if i >= len(self.m):
+            raise _CapacityMoved(f"window doc {i} is past {len(self.m)}")
+        return self.m[i]
+
+
+class _View:
+    """What a search reads of its reader: the fields, each field's
+    (uncommitted, committed) container, the tombstones, and the capacity.
+    The reader's own view is live; a search pins a copy
+    (``CollectionReader._pinned``), so a commit that lands meanwhile
+    swaps containers the search no longer reads. The copy takes the
+    containers first and the capacity after them: a generation holds
+    only docs below the capacity at its commit, which never shrinks, so
+    the pinned capacity covers every generation the search reads."""
+
+    __slots__ = ("fields", "field_by_name", "string", "number", "keyword",
+                 "bool", "vector", "deleted", "cap")
+
+    def __init__(self, fields, field_by_name, string, number, keyword, bool_,
+                 vector, deleted, cap: Optional[int] = None) -> None:
+        self.fields: Dict[int, TypedField] = fields
+        self.field_by_name: Dict[str, int] = field_by_name
+        self.string: Dict[int, _StringField] = string
+        self.number: Dict[int, _NumberField] = number
+        self.keyword: Dict[int, _KeywordField] = keyword
+        self.bool: Dict[int, _BoolField] = bool_
+        self.vector: Dict[int, _VectorField] = vector
+        self.deleted: Set[int] = deleted
+        self.cap = cap  # None: the reader's live capacity
+
+    def pin(self, cap_now) -> "_View":
+        view = _View(dict(self.fields), dict(self.field_by_name),
+                     dict(self.string), dict(self.number),
+                     dict(self.keyword), dict(self.bool), dict(self.vector),
+                     self.deleted)
+        view.cap = cap_now()
+        return view
 
 
 class _DeviceCache:
@@ -200,6 +262,11 @@ class _DeviceCache:
             self.device = self.mesh.root
         self._store: Dict[Tuple[int, Any], Any] = {}
         self._keepalive: Dict[int, Any] = {}
+        # generations a commit replaced; searches that pinned one before
+        # the commit still read it, uncached
+        self._retired: "weakref.WeakValueDictionary[int, Any]" = (
+            weakref.WeakValueDictionary())
+        self._lock = threading.Lock()
 
     def put(self, arr: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(arr), device=self.device)
@@ -209,9 +276,20 @@ class _DeviceCache:
         hit = self._store.get(key)
         if hit is None:
             hit = build()
-            self._store[key] = hit
-            self._keepalive[id(obj)] = obj  # pin so id() stays unique
+            with self._lock:  # against a retire between the check and the store
+                if self._retired.get(id(obj)) is obj:
+                    return hit  # nothing pins a replaced generation
+                self._store[key] = hit
+                self._keepalive[id(obj)] = obj  # pin so id() stays unique
         return hit
+
+    def retire(self, obj: Any) -> None:
+        """``drop`` a generation a commit replaced, for good: searches
+        that pinned it still read it, but what they build for it is not
+        cached, so it lives no longer than they do."""
+        with self._lock:
+            self._retired[id(obj)] = obj
+            self.drop(obj)
 
     def drop(self, obj: Any) -> None:
         oid = id(obj)
@@ -276,13 +354,15 @@ class _DeviceCache:
 
         key = ("dense_rows", cap, round(float(avgdl), 6))
         oid = id(s)
+        # a snapshot of the keys and pops: searches build and evict
+        # entries from other threads
         stale = [
-            k for k in self._store
+            k for k in list(self._store)
             if k[0] == oid and isinstance(k[1], tuple)
             and k[1][:2] == ("dense_rows", cap) and k[1] != key
         ]
         for k in stale:
-            del self._store[k]
+            self._store.pop(k, None)
         return self._get(s, key, build)
 
     def span_arrays(self, s: CommittedStringIndex, phrase: bool):
@@ -617,7 +697,7 @@ class _DeviceCache:
         perm = np.argsort(owner, kind="stable")
         counts = np.bincount(owner, minlength=n_shards)
         if len(counts) > n_shards:
-            raise _ShardsMoved(f"doc {int(global_docs.max())} is past "
+            raise _CapacityMoved(f"doc {int(global_docs.max())} is past "
                                f"{n_shards} shards of {local_cap}")
         offs = np.zeros(n_shards + 1, np.int64)
         offs[1:] = np.cumsum(counts)
@@ -988,18 +1068,17 @@ class CollectionReader:
         self.default_locale = default_locale
         self.cfg = gpu_cfg or GpuConfig()
 
-        self.fields: Dict[int, TypedField] = {}
-        self.field_by_name: Dict[str, int] = {}
-        self._string: Dict[int, _StringField] = {}
-        self._number: Dict[int, _NumberField] = {}
-        self._keyword: Dict[int, _KeywordField] = {}  # exact-value columns
-        self._bool: Dict[int, _BoolField] = {}
-        self._vector: Dict[int, _VectorField] = {}
+        # fields, containers (keyword: exact-value columns) and the
+        # cumulative tombstones; searches read them through their view
+        self._live = _View({}, {}, {}, {}, {}, {}, {}, set())
+        self._pins = threading.local()
+        # held while a search pins its view, a commit publishes its
+        # containers or a field is created: pins see none of these half done
+        self._view_lock = threading.Lock()
 
         self._alive: np.ndarray = np.ones(0, dtype=np.float32)
         self._alive_version = 0
         self._alive_device: Optional[Tuple[int, int, torch.Tensor]] = None
-        self.deleted: Set[int] = set()  # cumulative
         self.doc_count = 0
         self.max_doc_id = -1
         self.committed_offset = 0
@@ -1015,11 +1094,57 @@ class CollectionReader:
     def device(self) -> torch.device:
         return self._device.device
 
+    # -- the view a search reads ----------------------------------------------
+
+    def _view(self) -> _View:
+        """The view this thread's search pinned, else the live one."""
+        return getattr(self._pins, "view", None) or self._live
+
+    fields = property(lambda self: self._view().fields)
+    field_by_name = property(lambda self: self._view().field_by_name)
+    _string = property(lambda self: self._view().string)
+    _number = property(lambda self: self._view().number)
+    _keyword = property(lambda self: self._view().keyword)
+    _bool = property(lambda self: self._view().bool)
+    _vector = property(lambda self: self._view().vector)
+
+    @property
+    def deleted(self) -> Set[int]:
+        return self._view().deleted
+
+    @deleted.setter
+    def deleted(self, value: Set[int]) -> None:
+        self._live.deleted = value
+
+    def _pinned(self, fn, *args):
+        """``fn(*args)`` under one pinned view (nested calls share the
+        outer one). A read the view cannot cover raises
+        ``_CapacityMoved``, and the search starts again on a new view:
+        up to 8 times, then once more with the error let through."""
+        if getattr(self._pins, "view", None) is not None:
+            return fn(*args)
+        for attempt in range(9):
+            with self._view_lock:
+                self._pins.view = self._live.pin(self._live_capacity)
+            try:
+                return fn(*args)
+            except _CapacityMoved:
+                if attempt == 8:
+                    raise
+            finally:
+                self._pins.view = None
+
     # -- capacity -------------------------------------------------------------
+
+    def _live_capacity(self) -> int:
+        return bucket_pad(max(self.max_doc_id + 1, 1), (self.cfg.doc_capacity_step,))
 
     @property
     def capacity(self) -> int:
-        return bucket_pad(max(self.max_doc_id + 1, 1), (self.cfg.doc_capacity_step,))
+        """The pinned view's capacity inside a search, else the live one:
+        every buffer of a search is sized by it."""
+        cap = self._view().cap
+        return self._live_capacity() if cap is None else cap
 
     def _grow(self, doc_id: int) -> None:
         # grow the alive array BEFORE publishing the larger max_doc_id:
@@ -1039,22 +1164,26 @@ class CollectionReader:
 
     def _alive_mask_device(self) -> torch.Tensor:
         cap = self.capacity
+        # the version read before the copy: an op that lands meanwhile
+        # leaves this entry stale, never a stale copy under its version
+        version = self._alive_version
         cached = self._alive_device
-        if cached and cached[0] == self._alive_version and cached[1] == cap:
+        if cached and cached[0] == version and cached[1] == cap:
             return cached[2]
         m = self._device.put(self._alive[:cap])
-        self._alive_device = (self._alive_version, cap, m)
+        self._alive_device = (version, cap, m)
         return m
 
     def _alive_mask_sharded(self, cap_s: int):
+        version = self._alive_version  # before the copy, as above
         cached = getattr(self, "_alive_device_sh", None)
-        if cached and cached[0] == self._alive_version and cached[1] == cap_s:
+        if cached and cached[0] == version and cached[1] == cap_s:
             return cached[2]
         m = np.zeros(cap_s, np.float32)
         n = min(len(self._alive), cap_s)
         m[:n] = self._alive[:n]
         dev = self._device.put_stacked(m.reshape(self._device.n_shards, -1))
-        self._alive_device_sh = (self._alive_version, cap_s, dev)
+        self._alive_device_sh = (version, cap_s, dev)
         return dev
 
     # -- op application (reference: collection.rs:608-681) --------------------
@@ -1065,32 +1194,33 @@ class CollectionReader:
             self.uncommitted_ops += 1
 
     def _apply_locked(self, op) -> None:
+        live = self._live  # writes never go to a search's pinned view
         # hot ops first: a bulk ingest is almost entirely Index*/Insert ops
         if isinstance(op, IndexStringOp):
             self._grow(op.doc_id)
-            self._string[op.field_id].uncommitted.insert(
+            live.string[op.field_id].uncommitted.insert(
                 op.doc_id, op.field_length, op.terms
             )
         elif isinstance(op, IndexKeywordOp):
             self._grow(op.doc_id)
-            self._keyword[op.field_id].uncommitted.insert(op.doc_id, op.values)
+            live.keyword[op.field_id].uncommitted.insert(op.doc_id, op.values)
         elif isinstance(op, InsertDocumentOp):
             self._grow(op.doc_id)
             self._alive[op.doc_id] = 1.0
             self._alive_version += 1
-            if op.doc_id in self.deleted:
+            if op.doc_id in live.deleted:
                 # REBIND, never mutate: lock-free searches iterate this set
-                self.deleted = self.deleted - {op.doc_id}
+                live.deleted = live.deleted - {op.doc_id}
             self.doc_count += 1
         elif isinstance(op, IndexNumberOp):
             self._grow(op.doc_id)
-            self._number[op.field_id].uncommitted.insert(op.doc_id, op.value)
+            live.number[op.field_id].uncommitted.insert(op.doc_id, op.value)
         elif isinstance(op, IndexBoolOp):
             self._grow(op.doc_id)
-            self._bool[op.field_id].uncommitted.insert(op.doc_id, op.value)
+            live.bool[op.field_id].uncommitted.insert(op.doc_id, op.value)
         elif isinstance(op, IndexEmbeddingOp):
             self._grow(op.doc_id)
-            vf = self._vector[op.field_id]
+            vf = live.vector[op.field_id]
             first = np.asarray(op.vectors, dtype=np.float32)
             got = int(first.shape[-1]) if first.ndim else 0
             if (
@@ -1098,52 +1228,25 @@ class CollectionReader:
                 and got != vf.uncommitted.dimension
                 and vf.uncommitted.is_empty
                 and vf.committed.is_empty
-                and self.fields[op.field_id].model
+                and live.fields[op.field_id].model
             ):
                 # model-backed field whose registry dim is a static default:
                 # the write side's actual embedder defines the space
                 logging.getLogger("oramax").info(
                     "collection %s field %s: embedder dim %d overrides "
                     "registry dim %d",
-                    self.id, self.fields[op.field_id].name, got,
+                    self.id, live.fields[op.field_id].name, got,
                     vf.uncommitted.dimension,
                 )
                 vf = _VectorField(
                     UncommittedVectorIndex(got),
                     CommittedVectorIndex.empty(got),
                 )
-                self._vector[op.field_id] = vf
+                live.vector[op.field_id] = vf
             vf.uncommitted.insert(op.doc_id, op.vectors)
         elif isinstance(op, CreateFieldOp):
-            f = op.field
-            self.fields[f.field_id] = f
-            self.field_by_name[f.name] = f.field_id
-            if f.type == ValueType.STRING:
-                self._string.setdefault(
-                    f.field_id,
-                    _StringField(UncommittedStringIndex(), CommittedStringIndex.empty()),
-                )
-                self._keyword.setdefault(
-                    f.field_id,
-                    _KeywordField(UncommittedKeywordIndex(), CommittedKeywordIndex.empty()),
-                )
-            elif f.type == ValueType.NUMBER:
-                self._number.setdefault(
-                    f.field_id,
-                    _NumberField(UncommittedNumberIndex(), CommittedNumberIndex.empty()),
-                )
-            elif f.type == ValueType.BOOL:
-                self._bool.setdefault(
-                    f.field_id, _BoolField(UncommittedBoolIndex(), CommittedBoolIndex.empty())
-                )
-            elif f.type == ValueType.EMBEDDING:
-                from ..models.registry import model_dim
-
-                dim = model_dim(f.model) if f.model else 0
-                self._vector.setdefault(
-                    f.field_id,
-                    _VectorField(UncommittedVectorIndex(dim), CommittedVectorIndex.empty(dim)),
-                )
+            with self._view_lock:
+                self._create_field(live, op.field)
         elif isinstance(op, DeleteDocumentsOp):
             ids = set(op.doc_ids)
             for d in ids:
@@ -1151,10 +1254,41 @@ class CollectionReader:
                     self._alive[d] = 0.0
                     self.doc_count -= 1
             # REBIND, never |=: lock-free searches iterate this set
-            self.deleted = self.deleted | ids
+            live.deleted = live.deleted | ids
             self._alive_version += 1
         else:
             raise TypeError(f"unknown op {type(op).__name__}")
+
+    def _create_field(self, live: _View, f: TypedField) -> None:
+        """A new field and its empty containers."""
+        live.fields[f.field_id] = f
+        live.field_by_name[f.name] = f.field_id
+        if f.type == ValueType.STRING:
+            live.string.setdefault(
+                f.field_id,
+                _StringField(UncommittedStringIndex(), CommittedStringIndex.empty()),
+            )
+            live.keyword.setdefault(
+                f.field_id,
+                _KeywordField(UncommittedKeywordIndex(), CommittedKeywordIndex.empty()),
+            )
+        elif f.type == ValueType.NUMBER:
+            live.number.setdefault(
+                f.field_id,
+                _NumberField(UncommittedNumberIndex(), CommittedNumberIndex.empty()),
+            )
+        elif f.type == ValueType.BOOL:
+            live.bool.setdefault(
+                f.field_id, _BoolField(UncommittedBoolIndex(), CommittedBoolIndex.empty())
+            )
+        elif f.type == ValueType.EMBEDDING:
+            from ..models.registry import model_dim
+
+            dim = model_dim(f.model) if f.model else 0
+            live.vector.setdefault(
+                f.field_id,
+                _VectorField(UncommittedVectorIndex(dim), CommittedVectorIndex.empty(dim)),
+            )
 
     # -- filters (reference: collection.rs:797-869) ---------------------------
 
@@ -1389,6 +1523,9 @@ class CollectionReader:
         self, docs: Sequence[int], vals: Sequence[float]
     ) -> Tuple[np.ndarray, np.ndarray]:
         n = len(docs)
+        if n and max(docs) >= self.capacity:
+            raise _CapacityMoved(f"window doc {max(docs)} is past "
+                                 f"{self.capacity}")
         n_pad = bucket_pad(max(n, 1), self.cfg.posting_bucket_steps)
         idx = np.zeros(n_pad, np.int32)
         idx[:n] = docs
@@ -1514,7 +1651,7 @@ class CollectionReader:
             if not sf.uncommitted.is_empty:
                 host_out: Dict[int, float] = {}
                 sf.uncommitted.search(
-                    tokens, field_boost, gi, _to_host(filter_mask),
+                    tokens, field_boost, gi, _WindowMask(_to_host(filter_mask)),
                     self.deleted, host_out, exact_tokens=stems,
                 )
                 if host_out:
@@ -1583,7 +1720,7 @@ class CollectionReader:
                         )
                 if not vf.uncommitted.is_empty:
                     if fm_host is None:
-                        fm_host = _to_host(filter_mask)
+                        fm_host = _WindowMask(_to_host(filter_mask))
                     host_out: Dict[int, float] = {}
                     vf.uncommitted.search(qn, fm_host, self.deleted, host_out)
                     if host_out:
@@ -1694,9 +1831,9 @@ class CollectionReader:
 
     @staticmethod
     def _in_split(docs: List[int], ctx) -> None:
-        """Raise _ShardsMoved for a window doc past the search's split."""
+        """Raise _CapacityMoved for a window doc past the search's split."""
         if docs and max(docs) >= ctx[3]:
-            raise _ShardsMoved(f"window doc {max(docs)} is past {ctx[3]}")
+            raise _CapacityMoved(f"window doc {max(docs)} is past {ctx[3]}")
 
     def _host_mask_at(self, mask, docs, masked: bool, ctx):
         """A sharded mask's values at (few) global doc ids, without
@@ -1881,8 +2018,10 @@ class CollectionReader:
 
             if not sf.uncommitted.is_empty:
                 host_out: Dict[int, float] = {}
+                # list(): the live window's ids copied at once (iterating
+                # its key view races with inserts)
                 fm = self._host_mask_at(
-                    filter_mask, sf.uncommitted.doc_lens.keys(), masked, ctx)
+                    filter_mask, list(sf.uncommitted.doc_lens), masked, ctx)
                 sf.uncommitted.search(
                     tokens, field_boost, gi, fm, self.deleted, host_out,
                     exact_tokens=stems,
@@ -2251,7 +2390,7 @@ class CollectionReader:
                         )
                 if not vf.uncommitted.is_empty:
                     if fm_host is None:
-                        fm_host = _to_host(filter_mask)
+                        fm_host = _WindowMask(_to_host(filter_mask))
                     for row, term_q in enumerate(qn):
                         host_out: Dict[int, float] = {}
                         vf.uncommitted.search(term_q, fm_host, self.deleted,
@@ -2354,7 +2493,7 @@ class CollectionReader:
                         scores = scores.index_add(0, ridx, sub)
             if not sf.uncommitted.is_empty:
                 if fm_host is None:
-                    fm_host = _to_host(filter_mask)
+                    fm_host = _WindowMask(_to_host(filter_mask))
                 for row, (tokens, stems) in enumerate(expansions):
                     host_out: Dict[int, float] = {}
                     sf.uncommitted.search(
@@ -2378,8 +2517,12 @@ class CollectionReader:
         self, params_list: List[SearchParams], ai_service
     ) -> List[Tuple[List[Tuple[int, float]], int]]:
         """Batched search of compatible queries (same mode, filters, boost
-        and fusion; no facets): one device program scores the batch.
+        and fusion; no facets): one device program scores the batch, from
+        one pinned view of the reader (``_pinned``).
         Returns [(ranked [(doc_id, score)], match count)] per query."""
+        return self._pinned(self._search_batch, params_list, ai_service)
+
+    def _search_batch(self, params_list: List[SearchParams], ai_service):
         if not params_list:
             return []
         p0 = params_list[0]
@@ -3315,13 +3458,12 @@ class CollectionReader:
     def search(
         self, params: SearchParams, ai_service
     ) -> Tuple[List[Tuple[int, float]], int, Optional[Dict[str, FacetResult]]]:
-        """Returns (ranked [(doc_id, score)], match count, facets)."""
+        """Returns (ranked [(doc_id, score)], match count, facets), read
+        from one pinned view of the reader (``_pinned``)."""
+        return self._pinned(self._search, params, ai_service)
+
+    def _search(self, params: SearchParams, ai_service):
         if self._use_sharded(params):
-            for _ in range(8):
-                try:
-                    return self._search_sharded(params, ai_service)
-                except _ShardsMoved:
-                    pass  # a commit grew the capacity: split again
             return self._search_sharded(params, ai_service)
         # the fused kNN outranks the fused dense program for eligible
         # (unfiltered exact) vector queries
@@ -3498,7 +3640,9 @@ class CollectionReader:
                         matched_host = _to_host(matched)
                     for i, r in enumerate(fdef.ranges):
                         for v, d in nf.uncommitted.pairs:
-                            if float(r.low) <= v <= float(r.high) and matched_host[d] > 0:
+                            if (float(r.low) <= v <= float(r.high)
+                                    and d < len(matched_host)
+                                    and matched_host[d] > 0):
                                 counts[i] += 1
                 values = {r.key: int(c) for r, c in zip(fdef.ranges, counts)}
                 out[field_name] = FacetResult(count=len(values), values=values)
@@ -3556,66 +3700,68 @@ class CollectionReader:
         """Merge uncommitted windows into new immutable generations and dump
         to ``data_dir`` as ``gen-{offset}`` + pointer file (the reference's
         format, so either package loads the other's data directory)."""
+        live = self._live
         with self._commit_insert_lock:
-            cap = self.capacity
-            deleted = set(self.deleted)
-            # fold each window into a NEW container and swap the dict entry
-            # atomically: lock-free searches see either the full pre-commit
-            # pair or the full post-commit pair
-            for fid, sf in list(self._string.items()):
+            cap = self._live_capacity()
+            deleted = set(live.deleted)
+            # fold each window into a NEW container; publish them all, and
+            # the emptied tombstones, in one step under the view lock: a
+            # search pins its view wholly before or wholly after a commit
+            swaps = []  # (table, field id, new container)
+            for fid, sf in list(live.string.items()):
                 if not sf.uncommitted.is_empty or deleted:
-                    old = sf.committed
-                    self._string[fid] = _StringField(
+                    swaps.append((live.string, fid, _StringField(
                         UncommittedStringIndex(),
-                        old.merge(sf.uncommitted, cap, deleted),
-                    )
-                    self._device.drop(old)
-            for fid, nf in list(self._number.items()):
+                        sf.committed.merge(sf.uncommitted, cap, deleted),
+                    )))
+            for fid, nf in list(live.number.items()):
                 if not nf.uncommitted.is_empty or deleted:
-                    old = nf.committed
-                    self._number[fid] = _NumberField(
-                        UncommittedNumberIndex(), old.merge(nf.uncommitted, deleted),
-                    )
-                    self._device.drop(old)
-            for fid, kf in list(self._keyword.items()):
+                    swaps.append((live.number, fid, _NumberField(
+                        UncommittedNumberIndex(),
+                        nf.committed.merge(nf.uncommitted, deleted),
+                    )))
+            for fid, kf in list(live.keyword.items()):
                 if not kf.uncommitted.is_empty or deleted:
-                    old = kf.committed
-                    self._keyword[fid] = _KeywordField(
-                        UncommittedKeywordIndex(), old.merge(kf.uncommitted, deleted),
-                    )
-                    self._device.drop(old)
-            for fid, bf in list(self._bool.items()):
+                    swaps.append((live.keyword, fid, _KeywordField(
+                        UncommittedKeywordIndex(),
+                        kf.committed.merge(kf.uncommitted, deleted),
+                    )))
+            for fid, bf in list(live.bool.items()):
                 if not bf.uncommitted.is_empty or deleted:
-                    old = bf.committed
-                    self._bool[fid] = _BoolField(
-                        UncommittedBoolIndex(), old.merge(bf.uncommitted, cap, deleted),
-                    )
-                    self._device.drop(old)
-            for fid, vf_old in list(self._vector.items()):
+                    swaps.append((live.bool, fid, _BoolField(
+                        UncommittedBoolIndex(),
+                        bf.committed.merge(bf.uncommitted, cap, deleted),
+                    )))
+            for fid, vf_old in list(live.vector.items()):
                 if not vf_old.uncommitted.is_empty or deleted:
-                    old = vf_old.committed
-                    merged = old.merge(vf_old.uncommitted, deleted)
+                    merged = vf_old.committed.merge(vf_old.uncommitted, deleted)
                     self._build_ann(merged)
-                    self._vector[fid] = _VectorField(
-                        UncommittedVectorIndex(old.dimension), merged,
-                    )
-                    self._device.drop(old)
-            # deletions are now folded into every committed generation:
-            # REBIND the tombstone set (in-flight searches keep the old one)
-            self.deleted = set()
+                    swaps.append((live.vector, fid, _VectorField(
+                        UncommittedVectorIndex(vf_old.committed.dimension),
+                        merged,
+                    )))
+            with self._view_lock:
+                olds = [table[fid].committed for table, fid, _ in swaps]
+                for table, fid, container in swaps:
+                    table[fid] = container
+                # deletions are now folded into every committed generation:
+                # REBIND the tombstone set (pinned searches keep the old one)
+                live.deleted = set()
+            for old in olds:
+                self._device.retire(old)
             self.committed_offset = offset
             self.uncommitted_ops = 0
 
         gen_dir = ensure_dir(os.path.join(data_dir, f"gen-{offset}"))
-        for fid, sf in self._string.items():
+        for fid, sf in live.string.items():
             atomic_write_npz(os.path.join(gen_dir, f"string-{fid}.npz"), sf.committed.to_arrays())
-        for fid, nf in self._number.items():
+        for fid, nf in live.number.items():
             atomic_write_npz(os.path.join(gen_dir, f"number-{fid}.npz"), nf.committed.to_arrays())
-        for fid, kf in self._keyword.items():
+        for fid, kf in live.keyword.items():
             atomic_write_npz(os.path.join(gen_dir, f"keyword-{fid}.npz"), kf.committed.to_arrays())
-        for fid, bf in self._bool.items():
+        for fid, bf in live.bool.items():
             atomic_write_npz(os.path.join(gen_dir, f"bool-{fid}.npz"), bf.committed.to_arrays())
-        for fid, vf in self._vector.items():
+        for fid, vf in live.vector.items():
             atomic_write_npz(os.path.join(gen_dir, f"vector-{fid}.npz"), vf.committed.to_arrays())
         manifest = {
             "collection_id": self.id,
@@ -3624,12 +3770,12 @@ class CollectionReader:
             "default_locale": self.default_locale,
             "doc_count": self.doc_count,
             "max_doc_id": self.max_doc_id,
-            "deleted": sorted(self.deleted),
+            "deleted": sorted(live.deleted),
             # cumulative dead slots (folded deletions included): restores
             # the alive mask on load
             "dead": np.nonzero(self._alive[: self.max_doc_id + 1] == 0.0)[0].tolist(),
             "offset": offset,
-            "fields": [dataclasses.asdict(f) for f in self.fields.values()],
+            "fields": [dataclasses.asdict(f) for f in live.fields.values()],
         }
         atomic_write_json(os.path.join(gen_dir, "manifest.json"), manifest)
         # pointer swap last — readers of a torn commit see the old generation

@@ -18,8 +18,17 @@ softmax outside Pallas, so the port runs them as plain torch (``matmul``,
 reference writes it.
 
 Weights: random (hash tokenizer) by default; retrieval-quality weights
-load from local HF checkpoints via models/hf_loader.py. Tensor-parallel
-``param_specs`` waits for the sharded slice (``parallel/``).
+load from local HF checkpoints via models/hf_loader.py.
+
+Tensor parallelism: ``param_specs`` is the reference's Megatron layout
+(:82-102), leaf for leaf, and ``encode`` takes parameters placed by it
+(``parallel.mesh.shard_params``) as well as plain ones. The batch splits
+over ``data``, as the reference places ``ids`` on ``P("data", None)``;
+each model shard runs its heads' attention, and the row-split o and down
+products give f32 partials that are summed over ``model`` before their
+replicated bias is added, once (models/tp.py). The engine does not read
+the ``model`` axis, as in the reference: the sharded forward serves the
+model.
 """
 
 from __future__ import annotations
@@ -33,6 +42,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import P
+from . import tp
 from .checkpoint import as_param
 from .registry import model_info
 
@@ -126,6 +137,28 @@ def init_params(cfg: EncoderConfig, generator: Optional[torch.Generator] = None,
     return params_from_numpy(tree, cfg, device)
 
 
+def param_specs(cfg: EncoderConfig) -> Dict[str, Any]:
+    """Partition specs for tensor parallelism over ``model``, the
+    reference's tree (:82-102): q/k/v/up split by column (bias with its
+    columns), o/down by row (bias replicated, added after the sum)."""
+    col = {"w": P(None, "model"), "b": P("model")}
+    row = {"w": P("model", None), "b": P()}
+    ln = {"g": P(), "b": P()}
+    layer = {
+        "q": col, "k": col, "v": col, "o": row,
+        "ln1": ln, "up": col, "down": row, "ln2": ln,
+    }
+    specs: Dict[str, Any] = {
+        "tok_emb": P(),
+        "pos_emb": P(),
+        "emb_ln": ln,
+        "layers": [layer for _ in range(cfg.layers)],
+    }
+    if cfg.out_dim != cfg.hidden:
+        specs["proj"] = {"w": P(), "b": P()}
+    return specs
+
+
 def _ln(x, p, eps=1e-12):
     mu = x.mean(-1, keepdim=True)
     var = (x - mu).square().mean(-1, keepdim=True)
@@ -142,7 +175,12 @@ def encode(
     ids: torch.Tensor,    # int[B, L]
     mask: torch.Tensor,   # float32[B, L] 1 = real token
 ) -> torch.Tensor:
-    """[B, out_dim] L2-normalized mean-pooled embeddings (f32)."""
+    """[B, out_dim] L2-normalized mean-pooled embeddings (f32). Takes
+    plain parameters, or parameters placed by ``param_specs``
+    (``parallel.mesh.shard_params``), whose output lands on the mesh's
+    first device."""
+    if tp.is_sharded(params):
+        return _encode_sharded(params, cfg, ids, mask)
     dt = cfg.dtype
     b, l = ids.shape
     ids = ids.long()
@@ -169,6 +207,75 @@ def encode(
     x = x.float()
     if "proj" in params:
         x = _dense(x, params["proj"], torch.float32)
+    denom = torch.clamp(mask.sum(-1, keepdim=True), min=1.0)
+    pooled = (x * mask[:, :, None]).sum(1) / denom
+    return pooled / torch.clamp(
+        torch.linalg.vector_norm(pooled, dim=-1, keepdim=True), min=1e-12)
+
+
+def _replicated(tree, i: int):
+    """The replicated leaves of a placed subtree as unit i holds them."""
+    if isinstance(tree, dict):
+        return {k: _replicated(v, i) for k, v in tree.items()}
+    return tree.parts[i]
+
+
+def _encode_sharded(params, cfg: EncoderConfig, ids, mask) -> torch.Tensor:
+    """``encode`` over placed parameters: each run of data rows (all of
+    them on one device) embeds its slice of the batch; the slices are
+    gathered in order on the layout's first device."""
+    layout = params["tok_emb"].layout
+    outs = [
+        _encode_run(params, cfg, ids[r0:r1], mask[r0:r1], uids)
+        for r0, r1, uids in layout.runs(ids.shape[0])
+    ]
+    if len(outs) == 1:
+        return outs[0].to(layout.root)
+    return torch.cat([o.to(layout.root) for o in outs])
+
+
+def _encode_run(params, cfg: EncoderConfig, ids, mask, uids) -> torch.Tensor:
+    """The local bodies of one run: ``encode``'s steps, with the
+    products split as ``param_specs`` splits them (models/tp.py)."""
+    dt = cfg.dtype
+    units = tp.units_of(params["tok_emb"].layout, uids)
+    u0, d0 = uids[0], units[0].device
+    plan = tp.head_plan(cfg.heads, cfg.heads, cfg.hidden // cfg.heads,
+                        params["tok_emb"].layout.n_model)
+    hd = plan.hd
+    l = ids.shape[1]
+    ids = ids.to(d0).long()
+    mask = mask.to(d0).float()
+    x = params["tok_emb"].parts[u0][ids] + params["pos_emb"].parts[u0][:l][None]
+    x = _ln(x, _replicated(params["emb_ln"], u0)).to(dt)
+    biases = tp.spread((1.0 - mask[:, None, None, :]) * -1e9, units)
+    for layer in params["layers"]:
+        xs = tp.spread(x, units)
+        q, k, v = (
+            tp.heads(tp.col(xs, layer[n]["w"], uids, dt, layer[n]["b"],
+                            f32=True), units, plan, "q")
+            for n in ("q", "k", "v")
+        )
+        ctxs = []
+        for j, u in enumerate(units):
+            logits = torch.einsum("mbqhd,mbkhd->mbhqk", q[j],
+                                  k[j]) / math.sqrt(hd)
+            w = torch.softmax(logits + biases[j], dim=-1)
+            ctx = torch.einsum("mbhqk,mbkhd->mbqhd", w.to(dt).float(), v[j])
+            ctxs.append(tp.own_cols(ctx.reshape(ctx.shape[:3] + (-1,)), u,
+                                    plan))
+        o = tp.row_sum(ctxs, layer["o"]["w"], uids, dt, d0)
+        x = _ln(x.float() + (o + layer["o"]["b"].parts[u0]),
+                _replicated(layer["ln1"], u0)).to(dt)
+        hs = [F.gelu(y, approximate="none").to(dt) for y in tp.col(
+            tp.spread(x, units), layer["up"]["w"], uids, dt,
+            layer["up"]["b"], f32=True)]
+        down = tp.row_sum(hs, layer["down"]["w"], uids, dt, d0)
+        x = _ln(x.float() + (down + layer["down"]["b"].parts[u0]),
+                _replicated(layer["ln2"], u0)).to(dt)
+    x = x.float()
+    if "proj" in params:
+        x = _dense(x, _replicated(params["proj"], u0), torch.float32)
     denom = torch.clamp(mask.sum(-1, keepdim=True), min=1.0)
     pooled = (x * mask[:, :, None]).sum(1) / denom
     return pooled / torch.clamp(

@@ -21,7 +21,19 @@ No TPU kernel is on this path (the reference computes it outside Pallas):
 plain torch products, softmax and elementwise ops. Weights: random by
 default; real checkpoints load via models/hf_loader.py. Tokenization:
 byte-level fallback, the HF tokenizer when a checkpoint is loaded.
-Tensor-parallel ``param_specs`` waits for the sharded slice.
+
+Tensor parallelism: ``param_specs`` is the reference's Megatron layout
+(:85-99), and ``forward``, ``make_cache`` and ``generate`` take
+parameters placed by it (``parallel.mesh.shard_params``) as well as plain
+ones. Each model shard computes attention for the q heads its columns
+touch, after gathering the columns of the KV heads they use when its own
+k/v columns are not those heads (grouped-query attention over more
+shards than KV heads gives a shard part of a KV head, and rotary
+embedding needs the whole head); its cache holds those KV heads. The
+``wo`` and ``w_down`` partials are summed over ``model``; ``tok_emb``,
+the norms and ``lm_head`` are replicated (models/tp.py). The batch is
+not split over ``data`` (the reference replicates the prompt): the first
+data row of the mesh computes it.
 """
 
 from __future__ import annotations
@@ -34,6 +46,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import P
+from . import tp
 from .checkpoint import as_param
 
 
@@ -120,6 +134,27 @@ def init_params(cfg: LlmConfig, generator: Optional[torch.Generator] = None,
     return params
 
 
+def param_specs(cfg: LlmConfig, with_bias: bool = False) -> Dict[str, Any]:
+    """Partition specs for tensor parallelism over ``model``, the
+    reference's tree (:85-99): wq/wk/wv/w_gate/w_up split by column
+    (``bq``/``bk``/``bv`` with their columns), wo/w_down by row, the
+    embeddings, norms and ``lm_head`` replicated."""
+    col = P(None, "model")
+    row = P("model", None)
+    layer = {
+        "ln1": P(), "wq": col, "wk": col, "wv": col, "wo": row,
+        "ln2": P(), "w_gate": col, "w_up": col, "w_down": row,
+    }
+    if with_bias:
+        layer = dict(layer, bq=P("model"), bk=P("model"), bv=P("model"))
+    return {
+        "tok_emb": P(),
+        "out_norm": P(),
+        "lm_head": P(),
+        "layers": [layer for _ in range(cfg.layers)],
+    }
+
+
 def _rms(x, g, eps=1e-6):
     var = x.float().square().mean(-1, keepdim=True)
     return (x * torch.rsqrt(var + eps)).to(x.dtype) * g.to(x.dtype)
@@ -151,7 +186,12 @@ def forward(
     """Returns (logits f32 [B, T, V], kv cache). With a cache, keys/values
     and positions are written in place at [cache_len, cache_len+T) and
     attention spans the full cache with position masking; without one the
-    cache returned is the per-layer (k, v) list of this call."""
+    cache returned is the per-layer (k, v) list of this call. Placed
+    parameters (``param_specs``) take the sharded forward, with a cache
+    from ``make_cache(..., params=params)``."""
+    if tp.is_sharded(params):
+        return _forward_sharded(params, cfg, ids, positions, kv_cache,
+                                cache_len)
     dt = cfg.dtype
     b, t = ids.shape
     hd = cfg.head_dim
@@ -226,12 +266,113 @@ def forward(
     return logits, new_kv
 
 
+def _plan(params, cfg: LlmConfig) -> tp.HeadPlan:
+    return tp.head_plan(cfg.heads, cfg.kv_heads, cfg.head_dim,
+                        params["tok_emb"].layout.n_model)
+
+
+def _forward_sharded(params, cfg: LlmConfig, ids, positions, kv_cache,
+                     cache_len: int):
+    """``forward`` over placed parameters: the local bodies of the first
+    data row's units (models/tp.py); logits on the ids' device."""
+    dt = cfg.dtype
+    layout = params["tok_emb"].layout
+    uids = layout.rows[0]
+    units = tp.units_of(layout, uids)
+    u0, d0 = uids[0], units[0].device
+    plan = _plan(params, cfg)
+    t = ids.shape[1]
+    x = params["tok_emb"].parts[u0][ids.to(d0).long()].to(dt)
+    pos_u = tp.spread(positions, units)
+    if kv_cache is not None:
+        kv_list, pos_caches = kv_cache
+        for pc in {id(pc): pc for pc in pos_caches}.values():
+            pc[:, cache_len:cache_len + t] = positions.to(pc.device)
+    new_kv = []
+    for li, layer in enumerate(params["layers"]):
+        hs = tp.spread(_rms(x, layer["ln1"].parts[u0], cfg.rms_eps), units)
+        q, k, v = (
+            tp.col(hs, layer[w], uids, dt, layer.get(bn))
+            for w, bn in (("wq", "bq"), ("wk", "bk"), ("wv", "bv"))
+        )
+        q = tp.heads(q, units, plan, "q")
+        k = tp.heads(k, units, plan, "kv")
+        v = tp.heads(v, units, plan, "kv")
+        ctxs, layer_kv = [], []
+        for j, u in enumerate(units):
+            qj = _rope(q[j], pos_u[j], cfg.rope_theta)
+            kj = _rope(k[j], pos_u[j], cfg.rope_theta)
+            if kv_cache is not None:
+                ck, cv = kv_list[li][j]  # [m, B, max_len, nkv, hd]
+                ck[:, :, cache_len:cache_len + t] = kj
+                cv[:, :, cache_len:cache_len + t] = v[j]
+                layer_kv.append((ck, cv))
+                k_all, v_all, kv_pos = ck, cv, pos_caches[j]
+            else:
+                layer_kv.append((kj, v[j]))
+                k_all, v_all, kv_pos = kj, v[j], pos_u[j]
+            ctx = _attend(qj, k_all, v_all, kv_pos, pos_u[j], plan, u, dt)
+            ctxs.append(tp.own_cols(ctx, u, plan))
+        new_kv.append(layer_kv)
+        x = (x.float() + tp.row_sum(ctxs, layer["wo"], uids, dt, d0)).to(dt)
+
+        hs = tp.spread(_rms(x, layer["ln2"].parts[u0], cfg.rms_eps), units)
+        gate = [F.silu(g) for g in tp.col(hs, layer["w_gate"], uids, dt)]
+        up = tp.col(hs, layer["w_up"], uids, dt)
+        x = (x.float() + tp.row_sum([g * a for g, a in zip(gate, up)],
+                                    layer["w_down"], uids, dt, d0)).to(dt)
+
+    x = _rms(x, params["out_norm"].parts[u0], cfg.rms_eps)
+    logits = (x.float() @ params["lm_head"].parts[u0].float()).to(ids.device)
+    if kv_cache is not None:
+        return logits, (new_kv, pos_caches)
+    return logits, new_kv
+
+
+def _attend(q, k_all, v_all, kv_positions, positions, plan: tp.HeadPlan,
+            unit, dt):
+    """One unit's attention: q ``[m, B, T, nq, hd]`` over its KV heads
+    ``[m, B, K, nkv, hd]``, as ``forward`` computes it; returns the
+    context ``[m, B, T, nq * hd]``."""
+    m, b, t, nq, hd = q.shape
+    if not plan.group:  # q heads take their KV heads out of runs: copy
+        idx = plan.index("q_to_kv", unit)
+        pick = lambda a: torch.stack(  # noqa: E731
+            [a[j][:, :, idx[j]] for j in range(m)])
+        k_all, v_all = pick(k_all), pick(v_all)
+        g, r = nq, 1
+    else:
+        g, r = nq // plan.group, plan.group
+    qg = q.reshape(m, b, t, g, r, hd)
+    logits = torch.einsum(
+        "mbtgrd,mbkgd->mbgrtk", qg.float(), k_all.float()) / math.sqrt(hd)
+    causal = kv_positions[:, None, :] <= positions[:, :, None]  # [B, T, K]
+    logits = logits.masked_fill(~causal[:, None, None, :, :], -1e9)
+    attn = torch.softmax(logits, dim=-1).to(dt)
+    return torch.einsum("mbgrtk,mbkgd->mbtgrd", attn, v_all).reshape(
+        m, b, t, nq * hd)
+
+
 _POS_UNWRITTEN = 2**30
 
 
-def make_cache(cfg: LlmConfig, batch: int, device="cuda"):
+def make_cache(cfg: LlmConfig, batch: int, device="cuda", params=None):
     """(per-layer kv list, per-row slot-position array) on ``device`` —
-    see forward()."""
+    see forward(). For placed ``params``: per layer, one (k, v) pair per
+    unit of the first data row, ``[m, B, max_len, nkv, hd]`` (what each
+    shard's attention reads: its KV heads), and one position array per
+    unit (shared on a device)."""
+    if params is not None and tp.is_sharded(params):
+        layout = params["tok_emb"].layout
+        units = tp.units_of(layout, layout.rows[0])
+        nkv = _plan(params, cfg).nkv
+        kv = [[tuple(torch.zeros((u.m, batch, cfg.max_len, nkv,
+                                  cfg.head_dim), dtype=cfg.dtype,
+                                 device=u.device) for _ in range(2))
+               for u in units] for _ in range(cfg.layers)]
+        pos = tp.spread(torch.full((batch, cfg.max_len), _POS_UNWRITTEN,
+                                   dtype=torch.int32), units)
+        return kv, pos
     shape = (batch, cfg.max_len, cfg.kv_heads, cfg.head_dim)
     kv = [
         (torch.zeros(shape, dtype=cfg.dtype, device=device),
@@ -259,7 +400,7 @@ def generate(
     device = prompt_ids.device
     b, pt = prompt_ids.shape
     prompt_len = prompt_len.to(device=device, dtype=torch.int32)
-    cache = make_cache(cfg, b, device)
+    cache = make_cache(cfg, b, device, params)
     # right-pad slots get _POS_UNWRITTEN so no later query can attend a pad
     # token's kv (rows with shorter prompts than the padded width)
     arange_pt = torch.arange(pt, dtype=torch.int32, device=device)[None, :]

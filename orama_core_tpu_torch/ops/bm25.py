@@ -194,12 +194,20 @@ def bm25_scores_blocked_aligned_plain(post_docs, post_tf, post_ni, post_lens,
                                       avgdl, n_field_docs, n_docs: int,
                                       n_blocks: int) -> torch.Tensor:
     """Plain torch version of K1 (same contract as the wrapper)."""
-    contrib, docs = bm25_blocked_contrib_aligned(
+    contrib, docs = _in_row(*bm25_blocked_contrib_aligned(
         post_docs, post_tf, post_ni, post_lens, block_idx, lo_off, hi_off,
         field_boost, avgdl, n_field_docs,
-    )
+    ), n_docs)
     out = torch.zeros(n_docs, dtype=torch.float32, device=post_docs.device)
     return out.index_add_(0, docs.reshape(-1), contrib.reshape(-1))
+
+
+def _in_row(contrib, docs, n_docs: int):
+    """K1's doc bound: a doc id outside [0, n_docs) adds nothing (to doc
+    0), as the reference's ``segment_sum`` drops an id outside its
+    segments."""
+    out = (docs >= 0) & (docs < n_docs)
+    return contrib * out, docs * out
 
 
 def bm25_scores_blocked_aligned_batch_plain(post_docs, post_tf, post_ni,
@@ -212,10 +220,10 @@ def bm25_scores_blocked_aligned_batch_plain(post_docs, post_tf, post_ni,
     contract as ``bm25_scores_blocked_aligned_batch``): the reference's
     ``bm25_blocked_contrib_pallas`` and a segment sum over
     ``row_id * n_docs + doc``."""
-    contrib, docs = bm25_blocked_contrib_aligned(
+    contrib, docs = _in_row(*bm25_blocked_contrib_aligned(
         post_docs, post_tf, post_ni, post_lens, block_idx, lo_off, hi_off,
         field_boost, avgdl, n_field_docs,
-    )
+    ), n_docs)
     seg = docs + row_id.long()[:, None] * n_docs
     out = torch.zeros(b * n_docs, dtype=torch.float32, device=post_docs.device)
     return out.index_add_(0, seg.reshape(-1), contrib.reshape(-1)).reshape(

@@ -20,6 +20,14 @@ are its views.
 The engine uses only the ``data`` axis. A data shard is served from the
 first device of its row of the mesh, as ``P("data")`` replicates over
 ``model`` in the reference.
+
+The ``model`` axis serves the models' tensor-parallel layout, as in the
+reference (``param_specs`` of models/encoder.py and models/llm.py):
+``shard_params`` places a parameter tree by its specs (``P``), and the
+sharded forwards (models/tp.py) run each model shard's local body. The
+model shards of a data row that share a device are one stacked
+``[m, ...]`` tensor there (a ``Unit``), and their local bodies run as one
+call over the stack.
 """
 
 from __future__ import annotations
@@ -221,3 +229,167 @@ def psum(mesh: Mesh, parts: Sequence[torch.Tensor]) -> torch.Tensor:
     for p in parts[1:]:
         total = total + p.to(mesh.root)
     return total
+
+
+# -- the model axis: tensor-parallel parameters -------------------------------
+
+
+class P(tuple):
+    """A partition spec (``jax.sharding.PartitionSpec``): per dimension of
+    a leaf, the mesh axis it is split over, or None where it is whole; a
+    leaf with fewer entries than dimensions is whole in the rest."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __repr__(self) -> str:
+        return f"P{tuple(self)!r}"
+
+
+class Unit:
+    """The model shards ``[m0, m1)`` of one data row that a device holds,
+    stacked on it: the unit a local body runs on."""
+
+    __slots__ = ("device", "m0", "m1")
+
+    def __init__(self, device: torch.device, m0: int, m1: int) -> None:
+        self.device, self.m0, self.m1 = device, m0, m1
+
+    @property
+    def m(self) -> int:
+        return self.m1 - self.m0
+
+    def key(self):
+        return (str(self.device), self.m0, self.m1)
+
+
+class TPLayout:
+    """Where a tensor-parallel model runs on ``mesh``: for every data row,
+    its model shards as ``Unit``s. With ``stack`` the shards of a row that
+    share a device form one unit (one card or the CPU: one unit for all),
+    and data rows whose units are alike run as one batch; without it
+    every (data, model) position is a unit of one shard and runs alone."""
+
+    def __init__(self, mesh: Mesh, stack: bool = True) -> None:
+        if MODEL_AXIS not in mesh.shape:
+            raise ValueError(f"mesh {mesh} has no {MODEL_AXIS!r} axis")
+        self.stack = stack
+        self.n_model = mesh.shape[MODEL_AXIS]
+        self.n_data = mesh.shape.get(DATA_AXIS, 1)
+        devs = np.moveaxis(mesh.devices, mesh.axis_names.index(MODEL_AXIS), -1)
+        devs = devs.reshape(-1, self.n_model)  # [data rows, model]
+        self.units: List[Unit] = []
+        index: Dict[Any, int] = {}
+        self.rows: List[List[int]] = []
+        for row in devs:
+            groups: List[Unit] = []
+            for m, d in enumerate(row):
+                if stack and groups and groups[-1].device == d:
+                    groups[-1].m1 = m + 1
+                else:
+                    groups.append(Unit(d, m, m + 1))
+            ids = []
+            for g in groups:
+                k = g.key()
+                if k not in index:
+                    index[k] = len(self.units)
+                    self.units.append(g)
+                ids.append(index[k])
+            self.rows.append(ids)
+        self.root = self.units[self.rows[0][0]].device
+
+    def runs(self, batch: int) -> List[Tuple[int, int, List[int]]]:
+        """(first row, end row, units) of the batch per run: the batch
+        splits over ``data`` as ``P("data")`` places it, and with
+        ``stack`` consecutive data rows with the same units run as one."""
+        if batch % self.n_data:
+            raise ValueError(f"batch {batch} does not split over "
+                             f"{self.n_data} data shards")
+        per = batch // self.n_data
+        out: List[Tuple[int, int, List[int]]] = []
+        for d, ids in enumerate(self.rows):
+            if self.stack and out and out[-1][2] == ids:
+                out[-1] = (out[-1][0], (d + 1) * per, ids)
+            else:
+                out.append((d * per, (d + 1) * per, ids))
+        return out
+
+
+class Placed:
+    """A leaf placed by ``shard_params``: ``parts[u]`` is its tensor on
+    unit u of ``layout``. A leaf split over ``model`` holds the unit's
+    shards stacked, ``[m, *shard shape]``; a replicated leaf the whole
+    tensor (units on one device share it)."""
+
+    __slots__ = ("spec", "layout", "parts", "dim")
+
+    def __init__(self, spec: P, layout: TPLayout, parts: List[torch.Tensor],
+                 dim: Optional[int]) -> None:
+        self.spec, self.layout = spec, layout
+        self.parts, self.dim = parts, dim  # dim: the split one, or None
+
+    @property
+    def split(self) -> bool:
+        return self.dim is not None
+
+
+def _place(x: torch.Tensor, spec: P, layout: TPLayout) -> Placed:
+    spec = P(*spec)
+    if len(spec) > x.dim():
+        raise ValueError(f"spec {spec} has more entries than the "
+                         f"{x.dim()}-d leaf")
+    named = [(i, a) for i, a in enumerate(spec) if a is not None]
+    for i, a in named:
+        if a != MODEL_AXIS:
+            raise ValueError(f"spec {spec}: parameters split over "
+                             f"{MODEL_AXIS!r} only, not {a!r}")
+    if len(named) > 1:
+        raise ValueError(f"spec {spec} names {MODEL_AXIS!r} twice")
+    M = layout.n_model
+    copies: Dict[torch.device, torch.Tensor] = {}
+
+    def on(dev):
+        if dev not in copies:
+            copies[dev] = x.to(dev)
+        return copies[dev]
+
+    if not named:
+        return Placed(spec, layout, [on(u.device) for u in layout.units],
+                      None)
+    dim = named[0][0]
+    if x.shape[dim] % M:
+        raise ValueError(
+            f"spec {spec}: dimension {dim} of a leaf of shape "
+            f"{tuple(x.shape)} does not divide by the {M} shards of "
+            f"{MODEL_AXIS!r}")
+    shards = x.reshape(x.shape[:dim] + (M, x.shape[dim] // M)
+                       + x.shape[dim + 1:]).movedim(dim, 0)
+    parts = [shards[u.m0:u.m1].to(u.device).contiguous()
+             for u in layout.units]
+    return Placed(spec, layout, parts, dim)
+
+
+def shard_params(mesh: Mesh, tree, specs, stack: bool = True):
+    """``tree`` (a dict / list tree of tensors) placed on ``mesh`` by
+    ``specs`` (the same tree of ``P``): the counterpart of
+    ``jax.tree.map(lambda x, s: jax.device_put(x, NamedSharding(mesh,
+    s)), tree, specs)``. A leaf is split into ``mesh.shape["model"]``
+    equal shards along the dimension its spec names (``ValueError`` when
+    it does not divide, as JAX refuses) and is whole where its spec is
+    ``P()``; parameters are replicated over ``data``. Every leaf shares
+    one ``TPLayout``; ``stack=False`` keeps every position's shard its
+    own tensor."""
+    layout = TPLayout(mesh, stack)
+
+    def walk(x, s):
+        if isinstance(x, dict):
+            if set(x) != set(s):
+                raise ValueError(f"spec keys {sorted(s)} != {sorted(x)}")
+            return {k: walk(x[k], s[k]) for k in x}
+        if isinstance(x, (list, tuple)):
+            if len(x) != len(s):
+                raise ValueError(f"{len(s)} specs for {len(x)} leaves")
+            return [walk(a, b) for a, b in zip(x, s)]
+        return _place(x, s, layout)
+
+    return walk(tree, specs)

@@ -48,6 +48,44 @@ def test_k1_plain_matches_pallas_interpret():
     assert (got > 0).sum() > 1000
 
 
+def test_k1_drops_doc_ids_outside_the_row():
+    """A posting whose doc id lies outside [0, n_docs) adds nothing, as
+    the reference's segment_sum drops it (held against its Pallas kernel
+    in interpret mode); in a batch the id is bounded by its own row, and
+    each row equals the single-row scan of its plan."""
+    cap, docs, tf, ni, plens, p_lo, p_len = _scan_corpus()
+    docs = docs.copy()
+    docs[[3, 4, 700, 1000, 1536, 2100]] = [cap, cap + 5, -1, 2**31 - 1,
+                                           -(2**31), cap]
+    nb = 64
+    sb, lo, hi = ref.build_block_plan_aligned(p_lo, p_len, nb)
+    want = np.asarray(ref.bm25_scores_blocked_pallas(
+        jnp.asarray(docs), jnp.asarray(tf), jnp.asarray(ni),
+        jnp.asarray(plens), jnp.asarray(sb), jnp.asarray(lo),
+        jnp.asarray(hi), jnp.float32(1.3), jnp.float32(30.0),
+        jnp.float32(10000.0), n_docs=cap, n_blocks=nb, interpret=True,
+    ))
+    got = port.bm25_scores_blocked_aligned(
+        T(docs), T(tf), T(ni), T(plens), T(sb), T(lo), T(hi), 1.3, 30.0,
+        10000.0, n_docs=cap, n_blocks=nb,
+    ).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    rows = [(p_lo[:2], p_len[:2]), (p_lo[2:], p_len[2:])]
+    plan = port.build_batch_plan_aligned(rows)
+    batch = port.bm25_scores_blocked_aligned_batch(
+        T(docs), T(tf), T(ni), T(plens), *[T(a) for a in plan], 1.3, 30.0,
+        10000.0, n_docs=cap, n_blocks=len(plan[0]), b=2,
+    ).numpy()
+    for r, (lo_r, len_r) in enumerate(rows):
+        nb_r = 32
+        one = port.bm25_scores_blocked_aligned(
+            T(docs), T(tf), T(ni), T(plens),
+            *[T(a) for a in port.build_block_plan_aligned(lo_r, len_r, nb_r)],
+            1.3, 30.0, 10000.0, n_docs=cap, n_blocks=nb_r,
+        ).numpy()
+        np.testing.assert_allclose(batch[r], one, rtol=0, atol=1e-5)
+
+
 def test_unaligned_blocked_scan_matches():
     cap, docs, tf, ni, plens, p_lo, p_len = _scan_corpus()
     # +BLOCK tail as the device cache pads

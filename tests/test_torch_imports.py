@@ -317,3 +317,42 @@ def test_mesh_search_loads_no_grpc_or_jax(tmp_path):
     )
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip().endswith("ok")
+
+
+def test_tp_models_and_benchgen_load_no_jax(tmp_path):
+    """The tensor-parallel encoder and decoder (models/tp.py over
+    parallel/mesh.shard_params) and utils/benchgen.py run without JAX in
+    the process."""
+    code = (
+        "import sys, torch\n"
+        "from orama_core_tpu_torch.models import encoder as enc, llm\n"
+        "from orama_core_tpu_torch.parallel.mesh import make_mesh, shard_params\n"
+        "from orama_core_tpu_torch.utils.benchgen import hashed_unit_corpus\n"
+        "cfg = enc.EncoderConfig(vocab_size=64, hidden=32, layers=1, heads=4,"
+        " mlp=64, max_len=8, out_dim=32)\n"
+        "p = shard_params(make_mesh((2, 2), device='cpu'),"
+        " enc.init_params(cfg, device='cpu'), enc.param_specs(cfg))\n"
+        "assert enc.encode(p, cfg, torch.ones(2, 8, dtype=torch.long),"
+        " torch.ones(2, 8)).shape == (2, 32)\n"
+        "lc = llm.LlmConfig(vocab_size=64, hidden=32, layers=1, heads=4,"
+        " kv_heads=2, mlp=64, max_len=16)\n"
+        "lp = shard_params(make_mesh((1, 4), device='cpu'),"
+        " llm.init_params(lc, device='cpu'), llm.param_specs(lc))\n"
+        "out = llm.generate(lp, lc, torch.ones(1, 4, dtype=torch.long),"
+        " torch.tensor([4]), 3, eos_id=63)\n"
+        "assert out.shape == (1, 3)\n"
+        "assert hashed_unit_corpus(4, 8, 1, device='cpu').shape == (4, 8)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'orama_core_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.dirname(PKG) + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().endswith("ok")

@@ -379,6 +379,44 @@ def test_k1_row_ids_on_card(case):
 
 
 @pytest.mark.gpu
+def test_k1_drops_doc_ids_outside_the_row_on_card():
+    """K1 drops a doc id outside [0, n_docs) (past the row, at its end,
+    negative, the int32 extremes) as its plain twin does, in one row and
+    in a batch's rows, within rtol 1e-5, atol 1e-6; the doc ids past the
+    row are real postings, so a kernel that wrote them would also touch
+    the next row of the batch."""
+    _need_card()
+    from orama_core_tpu_torch.ops import bm25
+
+    rng = np.random.default_rng(47)
+    cols = _k1_corpus(rng)
+    bad = torch.tensor([50_000, 50_001, 50_000 + 4096, -1, 2**31 - 1,
+                        -(2**31)], dtype=torch.int32, device="cuda")
+    cols[0][1500:1500 + 6] = bad
+    cols[0][3100:3100 + 6] = bad
+    p_lo, p_len = [1500, 3000], [300, 2000]
+    nb = bm25.PLAN_BUCKETS[0]
+    planned = [torch.tensor(a, device="cuda")
+               for a in bm25.build_block_plan_aligned(p_lo, p_len, nb)]
+    scal = (1.3, 42.0, 50_000.0)
+    got = bm25.bm25_scores_blocked_aligned(
+        *cols, *planned, *scal, n_docs=50_000, n_blocks=nb)
+    want = bm25.bm25_scores_blocked_aligned_plain(
+        *cols, *planned, *scal, n_docs=50_000, n_blocks=nb)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    rows = [([1500], [300]), ([3000], [2000]), ([], [])]
+    plan, nbb = _k1_batch_plan(rows)
+    got_b = bm25.bm25_scores_blocked_aligned_batch(
+        *cols, *plan, *scal, n_docs=50_000, n_blocks=nbb, b=3)
+    want_b = bm25.bm25_scores_blocked_aligned_batch_plain(
+        *cols, *plan, *scal, n_docs=50_000, n_blocks=nbb, b=3)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got_b, want_b, rtol=1e-5, atol=1e-6)
+    assert not got_b[2].any()
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("sub", [8, 16, 32])
 @pytest.mark.parametrize("d", [130, 384, 768, 1024, 2048])
 def test_k3_rescore_edges_on_card(d, sub):

@@ -93,6 +93,56 @@ def test_decoder_on_card_matches_cpu():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 2), (1, 4)])
+def test_tp_models_all_shards_on_one_card(shape):
+    """Every model shard on this card (one stacked unit): the sharded
+    encoder and decoder (2 KV heads, so at (1, 4) each shard gathers the
+    other half of its KV head) against their single-device forwards on
+    the card. f32: encoder rows within 1e-4, decoder logits within 1e-4
+    and greedy tokens equal; bf16: encoder rows by cosine >= 0.999,
+    decoder logits within 0.02."""
+    _need_card()
+    import dataclasses
+
+    from orama_core_tpu_torch.models import encoder as enc
+    from orama_core_tpu_torch.models import llm
+    from orama_core_tpu_torch.parallel.mesh import make_mesh, shard_params
+
+    mesh = make_mesh(shape, device="cuda")
+    rng = np.random.default_rng(1)
+    ids = torch.from_numpy(rng.integers(1, 30_000, (8, 64))).cuda()
+    mask = torch.ones(8, 64, device="cuda")
+    mask[3, 40:] = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        cfg = dataclasses.replace(enc.MINILM, layers=2, dtype=dt)
+        params = enc.init_params(cfg, torch.Generator().manual_seed(2), "cuda")
+        placed = shard_params(mesh, params, enc.param_specs(cfg))
+        if torch.cuda.device_count() == 1:
+            assert len(placed["tok_emb"].layout.units) == 1
+        want = enc.encode(params, cfg, ids, mask)
+        got = enc.encode(placed, cfg, ids, mask)
+        if dt == torch.float32:
+            torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+        else:
+            assert (_cos(got.cpu().numpy(), want.cpu().numpy()) >= 0.999).all()
+    for dt, atol in ((torch.float32, 1e-4), (torch.bfloat16, 0.02)):
+        cfg = llm.LlmConfig(vocab_size=512, hidden=256, layers=3, heads=8,
+                            kv_heads=2, mlp=1024, max_len=128, dtype=dt)
+        params = llm.init_params(cfg, torch.Generator().manual_seed(3), "cuda")
+        placed = shard_params(mesh, params, llm.param_specs(cfg))
+        seq = torch.tensor([[5, 17, 42, 9, 88, 3, 21, 60]], device="cuda")
+        pos = torch.arange(8, dtype=torch.int32, device="cuda")[None]
+        lw, _ = llm.forward(params, cfg, seq, pos, None, 0)
+        lg, _ = llm.forward(placed, cfg, seq, pos, None, 0)
+        torch.testing.assert_close(lg, lw, atol=atol, rtol=0)
+        if dt == torch.float32:
+            plen = torch.tensor([8])
+            want = llm.generate(params, cfg, seq, plen, max_new=16, eos_id=257)
+            got = llm.generate(placed, cfg, seq, plen, max_new=16, eos_id=257)
+            assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
 def test_semantic_ranking_on_card(tmp_path):
     """tiny-semantic through the port's loader and tokenizer on the card,
     the embedding loop on its own thread (``start_background=True``):
