@@ -144,6 +144,24 @@ commits; K1 and K4 launched, hits held to a CPU reader of the state
 read) and ``utils/benchgen.py``'s corpus at 1M x 384 against the CPU's
 rows close it.
 
+Last, the train phase (one ``{"train": ...}`` line): the encoder trained
+on the card by ``tools/train_tiny_encoder`` at
+``scripts/train_tiny_encoder.py``'s defaults (700 steps of batch 96,
+hidden 96, 2 layers, f32; held-out topic accuracy above 0.85, loader round
+trip at least 0.999, ms a step by CUDA events, peak GiB); one batch's
+loss and gradients on the card against the CPU from the same parameters
+(the CPU parity test's limits); 200 steps at jax-minilm's width (hidden
+384, 6 layers) whose loss collapses to ln 96 as the reference's does,
+ms and host ms a step, device work items a step and the bound (3 x the
+forward's f32 FLOPs / 67 TFLOP/s); ``build_orama`` serving 4,608
+held-out passages from the trained checkpoint, 256 queries each of
+vector, hybrid RRF and phrase with topic accuracy@1 at least 0.85 and
+K1-K4 launched, their calls held to the plain twins and every query to a
+CPU engine fed the card's encoder rows; ``tools/warm_cache`` as its
+own process after the kernel libraries are deleted (it builds all six;
+the next first query rebuilds none) and ``tools/prepare_checkpoint`` on
+the trained directory.
+
 With ``--profile``, each engine mode and each batch shape is also traced
 with torch.profiler (device busy share, top ops by device time and, per
 engine mode, by host self time). The
@@ -975,26 +993,28 @@ def k6_work(n, n_valid, d, q):
     return b + n_valid * 4, ops
 
 
-def check_k2(vecs, qd, n_valid):
-    """K2 against its plain version: max within 1e-4 (f32 sums of exact
-    bf16 products in another order), counts equal in every sub-block with
-    no similarity within 1e-5 of zero. Returns (max abs err, plain max)."""
+def check_k2(vecs, qd, n_valid, sub=32, got=None):
+    """K2 (its result ``got``, else a launch here) against its plain
+    version: max within 1e-4 (f32 sums of exact bf16 products in another
+    order), counts equal in every sub-block with no similarity within
+    1e-5 of zero. Returns (max abs err, plain max)."""
     import torch
 
     from orama_core_tpu_torch.ops import knn
 
-    bm, bc = knn.subblock_max(vecs, qd, 32, n_valid)
-    pm, pc = knn.subblock_max_plain(vecs, qd, 32, n_valid)
-    torch.cuda.synchronize()
+    bm, bc = got if got is not None else knn.subblock_max(vecs, qd, sub,
+                                                          n_valid)
+    pm, pc = knn.subblock_max_plain(vecs, qd, sub, n_valid)
+    _sync(vecs.device)
     require(bm.shape == pm.shape and bc.shape == pc.shape,
             f"K2 shapes {tuple(bm.shape)} vs {tuple(pm.shape)}")
     err = (bm - pm).abs().max().item()
     require(err <= 1e-4, f"K2 max disagrees at Q={qd.shape[0]}: {err}")
     sims = vector_sims(vecs, qd, n_valid)
     near0 = torch.zeros(vecs.shape[0], qd.shape[0], dtype=torch.bool,
-                        device="cuda")
+                        device=vecs.device)
     near0[:n_valid] = sims.abs() < 1e-5
-    near0 = near0.reshape(-1, 32, qd.shape[0]).any(dim=1)
+    near0 = near0.reshape(-1, sub, qd.shape[0]).any(dim=1)
     bad = int(((bc != pc) & ~near0).sum())
     require(bad == 0, f"K2 counts disagree at Q={qd.shape[0]} in {bad} "
             "sub-blocks with no near-zero similarity")
@@ -3527,6 +3547,634 @@ def phase_serve(card):
     return rec, rec["launches"]
 
 
+TRAIN_DIR = os.path.join(ROOT, "build", "chip_smoke_train")
+TRAIN_MINILM_STEPS = 200
+ENGINE_PROBE_DOCS = 4608    # K2 serves vector queries from 4,096 rows
+ENGINE_PROBE_QUERIES = 256
+ENGINE_PROBE_SEED = 2024    # neither the training stream (0) nor the probe's
+
+
+def _sync(device):
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def train_default(out, device="cuda", steps=700):
+    """``tools/train_tiny_encoder`` at the script's defaults (700 steps of
+    batch 96, hidden 96, 2 layers, f32, seed 0) on the card: its gate
+    (held-out topic accuracy > 0.85) and round trip (cosine > 0.999
+    through the port's loader) hold; losses, accuracies, ms a step (CUDA
+    events), peak GiB above what was allocated before, and
+    ``train_step_profile``'s host and device shares against the bound."""
+    import torch
+
+    from orama_core_tpu_torch.tools import train_tiny_encoder as cli
+
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    try:
+        rec = cli.run(cli.parse_args(["--out", out, "--device", device,
+                                      "--steps", str(steps)]))
+    except cli.GateFailure as e:
+        raise SmokeFailure(f"train: {e}") from e
+    losses = rec["losses"]
+    require(losses[-1] < losses[0] and all(np.isfinite(losses)),
+            f"train: loss {losses[0]} -> {losses[-1]}")
+    require(rec["roundtrip_cosine"] >= 0.999,
+            f"train: round trip {rec['roundtrip_cosine']}")
+    out_rec = {
+        "steps": rec["steps"], "batch": rec["batch"],
+        "loss_first": losses[0], "loss_last": losses[-1],
+        "topic_acc": rec["probe"]["topic"], "pair_acc": rec["probe"]["pair"],
+        "roundtrip_cosine": rec["roundtrip_cosine"],
+        "ms_per_step": rec["ms_per_step"], "ms_clock": rec["ms_clock"],
+        "train_s": rec["train_s"],
+        "peak_gib": ((torch.cuda.max_memory_allocated() - base) / 2**30
+                     if on_card else None),
+    }
+    out_rec.update(train_step_profile(rec["params"], rec["cfg"],
+                                      rec["ms_per_step"], rec["batch"],
+                                      device))
+    log(f"train default {out_rec}")
+    return out_rec
+
+
+def train_card_vs_cpu(device="cuda", widths=((96, 2, 4), (384, 6, 12)),
+                      batch=96, steps=3, step_batch=32):
+    """At the default width and at jax-minilm's width and depth (f32),
+    from the same parameters on the card and on the CPU: one batch's loss
+    and gradients, with the CPU parity test's limits (loss relative 1e-5,
+    each leaf within 1e-4 of its largest magnitude, the key biases' zero
+    gradient below 1e-6 of the largest); then ``steps`` Adam steps, the
+    losses within relative 1e-5 and the parameters' spread in units of
+    lr held to the card-only test's limits: 99.9% within 2e-3 lr and
+    99.99% within 0.05 lr. The largest is recorded, not bounded: Adam
+    turns rounding noise in a gradient below its eps into an update of
+    up to lr, so a few parameters may part by a good part of lr. The CPU
+    is held to the reference at both (tests/test_torch_train_encoder.py,
+    tests/test_torch_train_minilm.py), so the card is too."""
+    import torch
+
+    from orama_core_tpu_torch.models import encoder as enc
+    from orama_core_tpu_torch.models import train_encoder as te
+
+    vocab = te.build_vocab()
+    rows = []
+    for hidden, layers, heads in widths:
+        cfg = te.train_config(len(vocab), hidden=hidden, layers=layers,
+                              heads=heads)
+        start = enc.init_params(cfg, torch.Generator().manual_seed(7), "cpu")
+        data = [x.numpy() for x in te.sample_batch(
+            np.random.default_rng(7), te.TrainTokenizer(vocab), batch, "cpu")]
+        cpu_loss, cpu_grads = te.loss_and_grads(start, cfg, data, "cpu")
+        loss, grads = te.loss_and_grads(start, cfg, data, device)
+        err = te.gradient_error(grads, cpu_grads)
+        rel = abs(loss - cpu_loss) / abs(cpu_loss)
+        require(rel <= 1e-5 and err["leaf"] <= 1e-4
+                and err["key_bias"] <= 1e-6,
+                f"train: card against CPU at {hidden}: loss {loss} vs "
+                f"{cpu_loss}, {err}")
+        cpu, cpu_losses = te.train(cfg, steps, step_batch, seed=1,
+                                   device="cpu", params=start)
+        card, losses = te.train(cfg, steps, step_batch, seed=1,
+                                device=device, params=start)
+        diff = torch.cat([(a.detach().cpu() - b.detach()).abs().reshape(-1)
+                          for a, b in zip(te.leaves(card), te.leaves(cpu))])
+        diff = diff.numpy() / te.LR
+        loss_err = float(np.max(np.abs(np.subtract(losses, cpu_losses))
+                                / np.abs(cpu_losses)))
+        q999, q9999 = (float(q) for q in np.quantile(diff, [0.999, 0.9999]))
+        require(loss_err <= 1e-5 and q999 <= 2e-3 and q9999 <= 0.05,
+                f"train: {steps} Adam steps at {hidden}: losses {losses} vs "
+                f"{cpu_losses}, parameters {q999} / {q9999} lr")
+        rows.append({"hidden": hidden, "layers": layers, "heads": heads,
+                     "loss": loss,
+                     "cpu_loss": cpu_loss, "loss_rel_err": rel,
+                     "grad_leaf_rel_err": err["leaf"],
+                     "key_bias_grad": err["key_bias"], "leaves": len(grads),
+                     "adam_steps": steps, "adam_loss_rel_err": loss_err,
+                     "param_max_lr": float(diff.max()),
+                     "param_q999_lr": q999, "param_q9999_lr": q9999,
+                     "params_over_005_lr": int((diff > 0.05).sum()),
+                     "params": int(diff.size)})
+        log(f"train card vs cpu {rows[-1]}")
+    return rows
+
+
+def train_step_work(cfg, batch, tokens):
+    """(f32 FLOPs of one step's two encoder forwards and the logits,
+    3 x that for a step with its backward)."""
+    h, m, layers = cfg.hidden, cfg.mlp, cfg.layers
+    rows = 2 * batch                                # the A and B sides
+    dense = 2.0 * rows * tokens * (4 * h * h + 2 * h * m) * layers
+    attn = 4.0 * rows * tokens * tokens * h * layers
+    fwd = dense + attn + 2.0 * batch * batch * cfg.out_dim
+    return fwd, 3.0 * fwd
+
+
+def train_step_profile(params, cfg, ms, batch=96, device="cuda", steps=5):
+    """A training step of ``cfg`` at ``batch`` pairs, taking ``ms`` a step
+    (measured over a run): the host's share, unprofiled (sampling the
+    batch, of it ``sample_ms``, and enqueueing the step, no sync inside)
+    over ``steps`` more steps, the device's busy ms and work items from
+    torch.profiler over as many more, and the bound: 3 x the forward's
+    f32 FLOPs / 67 TFLOP/s (TF32 off). The steps update ``params``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from orama_core_tpu_torch.models import train_encoder as te
+
+    opt = te.make_optimizer(params)
+    rng = np.random.default_rng(1)
+    tok = te.TrainTokenizer(te.build_vocab())
+    te.train_step(params, cfg, opt, te.sample_batch(rng, tok, batch, device))
+    _sync(device)
+    host_s = sample_s = 0.0
+    for _ in range(steps):
+        h0 = time.perf_counter()
+        data = te.sample_batch(rng, tok, batch, device)
+        sample_s += time.perf_counter() - h0
+        te.train_step(params, cfg, opt, data)
+        host_s += time.perf_counter() - h0
+    _sync(device)
+    on_card = torch.device(device).type == "cuda"
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
+    with profile(activities=acts) as prof:
+        for _ in range(steps):
+            te.train_step(params, cfg, opt,
+                          te.sample_batch(rng, tok, batch, device))
+        _sync(device)
+    items = sum(1 for e in prof.events()
+                if str(getattr(e, "device_type", "")).endswith("CUDA"))
+    busy_us = sum(_device_us(e) for e in prof.key_averages())
+    fwd, step_flops = train_step_work(cfg, batch, te.MAX_TOKENS)
+    bound = step_flops / F32_FLOPS * 1e3
+    return {"host_ms_per_step": host_s * 1e3 / steps,
+            "sample_ms_per_step": sample_s * 1e3 / steps,
+            "device_busy_ms_per_step": busy_us / 1e3 / steps,
+            "work_items_per_step": items / steps,
+            "fwd_gflop": fwd / 1e9, "step_gflop": step_flops / 1e9,
+            "bound_ms": bound, "share": bound / ms}
+
+
+def train_minilm(device="cuda", steps=TRAIN_MINILM_STEPS, batch=96):
+    """The trainer at jax-minilm's width (hidden 384, 6 layers, 12 heads,
+    MLP 1,536; the script's vocabulary, 64 positions, f32) for ``steps``
+    steps of batch 96 through ``train_encoder.train``; ms a step (CUDA
+    events around the run), peak GiB above what was allocated before, and
+    ``train_step_profile``'s host and device shares against the bound.
+
+    No learning is checked at this width: at lr 2e-3 (tuned for the small
+    model) the reference's own step collapses the encoder to uniform
+    logits within two steps, and the port's follows it step for step
+    (tests/test_torch_train_minilm.py, on the CPU). So the run must show
+    that trajectory: a falling loss whose last 20 steps' mean lies within
+    1e-3 of ``chance_loss`` (ln of the batch, the loss of uniform logits).
+    A trainer that does not step stays at its initial loss, above that.
+    The probe accuracy is recorded, not gated."""
+    import torch
+
+    from orama_core_tpu_torch.models import encoder as enc
+    from orama_core_tpu_torch.models import train_encoder as te
+
+    vocab = te.build_vocab()
+    cfg = te.train_config(len(vocab), hidden=enc.MINILM.hidden,
+                          layers=enc.MINILM.layers, heads=enc.MINILM.heads)
+    require(cfg.mlp == enc.MINILM.mlp, f"train minilm: MLP {cfg.mlp}")
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+    t0 = time.perf_counter()
+    params, losses = te.train(cfg, steps, batch, seed=0, device=device)
+    wall_s = time.perf_counter() - t0
+    if on_card:
+        ev[1].record()
+        ev[1].synchronize()
+        ms = ev[0].elapsed_time(ev[1]) / steps
+    else:
+        ms = wall_s * 1e3 / steps
+    chance = float(np.log(batch))
+    first, last = np.mean(losses[:20]), np.mean(losses[-20:])
+    require(all(np.isfinite(losses)) and losses[0] > last
+            and abs(last - chance) <= 1e-3,
+            f"train minilm: loss {losses[0]} -> last 20 {last}, not the "
+            f"reference's collapse to {chance}")
+    peak = ((torch.cuda.max_memory_allocated() - base) / 2**30
+            if on_card else None)
+    probe = te.topic_probe(params, cfg)
+    rec = {
+        "hidden": cfg.hidden, "layers": cfg.layers, "heads": cfg.heads,
+        "mlp": cfg.mlp, "batch": batch, "tokens": te.MAX_TOKENS,
+        "steps": steps, "loss_first": losses[0], "loss_last": losses[-1],
+        "loss_first20": float(first), "loss_last20": float(last),
+        "chance_loss": chance, "ms_per_step": ms,
+        **train_step_profile(params, cfg, ms, batch, device),
+        "peak_gib": peak, "topic_acc": probe["topic"],
+        "pair_acc": probe["pair"],
+    }
+    log(f"train minilm {rec}")
+    return rec
+
+
+# the kernels of the probe's path: name -> (ops module, wrapper, plain twin)
+PROBE_TWINS = {
+    "bm25_scan": ("bm25", "bm25_scores_blocked_aligned",
+                  "bm25_scores_blocked_aligned_plain"),
+    "knn_subblock_max": ("knn", "subblock_max", "subblock_max_plain"),
+    "knn_rescore": ("knn", "rescore_subblocks", "rescore_subblocks_plain"),
+    "phrase_counts": ("bm25", "phrase_counts", "phrase_counts_plain"),
+}
+
+
+class KeptCalls:
+    """While ``on``, each PROBE_TWINS wrapper keeps a copy of the
+    arguments and of the result of its first ``keep`` calls in each
+    ``mode`` (set by the caller): (kernel, mode) -> [(args, kwargs, out)].
+    The wrappers launch and count as they would; ``restore`` puts them
+    back."""
+
+    def __init__(self, keep=8):
+        import torch
+
+        from orama_core_tpu_torch.ops import bm25, knn
+
+        self.keep, self.mode, self.kept, self._saved = keep, None, {}, []
+        mods = {"bm25": bm25, "knn": knn}
+
+        def copy(x):
+            if isinstance(x, tuple):
+                return tuple(copy(v) for v in x)
+            return x.clone() if torch.is_tensor(x) else x
+
+        for name, (mod, fn, _plain) in PROBE_TWINS.items():
+            orig = getattr(mods[mod], fn)
+
+            def kept_call(*a, _orig=orig, _name=name, **kw):
+                calls = self.kept.setdefault((_name, self.mode), [])
+                if len(calls) >= self.keep:
+                    return _orig(*a, **kw)
+                a0, kw0 = copy(a), {k: copy(v) for k, v in kw.items()}
+                out = _orig(*a, **kw)
+                calls.append((a0, kw0, copy(out)))
+                return out
+
+            self._saved.append((mods[mod], fn, orig))
+            setattr(mods[mod], fn, kept_call)
+
+    def restore(self):
+        for mod, fn, orig in self._saved:
+            setattr(mod, fn, orig)
+
+    def check(self):
+        """Every kept result against the plain twin on the same arguments
+        (on the card): K1 within rtol 1e-5 / atol 1e-6 (sums in another
+        order), K2 as ``check_k2`` holds it, K3 within 1e-4, K4 exact.
+        Returns kernel -> {"calls", "max_abs_err"}."""
+        import torch
+
+        from orama_core_tpu_torch.ops import bm25, knn
+
+        mods = {"bm25": bm25, "knn": knn}
+        out = {}
+        for (name, mode), calls in sorted(self.kept.items()):
+            plain = getattr(mods[PROBE_TWINS[name][0]], PROBE_TWINS[name][2])
+            rec = out.setdefault(name, {"calls": 0, "max_abs_err": 0.0})
+            for a, kw, got in calls:
+                what = f"engine probe {mode}: {name} on the probe's inputs"
+                if name == "knn_subblock_max":
+                    vecs, qd, sub, n_valid = a
+                    err, _ = check_k2(vecs, qd, n_valid, sub, got=got)
+                elif name == "phrase_counts":
+                    want = plain(*a, **kw)
+                    require(all(torch.equal(g, w) for g, w in zip(got, want)),
+                            f"{what}: counts differ from the plain version")
+                    err = 0.0
+                else:
+                    want = plain(*a, **kw)
+                    err = (got - want).abs().max().item() if got.numel() else 0.0
+                    ok = (torch.allclose(got, want, rtol=1e-5, atol=1e-6)
+                          if name == "bm25_scan" else err <= 1e-4)
+                    require(ok, f"{what}: max err {err}")
+                rec["calls"] += 1
+                rec["max_abs_err"] = max(rec["max_abs_err"], float(err))
+        for name in PROBE_TWINS:
+            require(out.get(name, {}).get("calls"),
+                    f"engine probe: no {name} call was kept")
+        return out
+
+
+def check_rrf_hits(got, parts, rtol, what):
+    """``got``, the top hits of an RRF fusion (score 1 / (61 + rank) summed
+    over the parts a doc scores in), against ``parts``, every hit of each
+    component as the plain version gives it, where scores within ``rtol``
+    of each other may rank in either order: each hit's score lies between
+    the least and the most its ranks allow, and no doc left out is sure
+    to beat the last hit."""
+    lo, hi = {}, {}
+    for hits in parts:
+        ids = [d for d, sc in hits if sc > 0]
+        s = np.asarray([sc for _, sc in hits if sc > 0], np.float64)
+        asc = np.sort(s)
+        best = len(s) - np.searchsorted(asc, s * (1 + rtol), side="right")
+        worst = len(s) - np.searchsorted(asc, s * (1 - rtol), side="left") - 1
+        for d, b, w in zip(ids, best, worst):
+            lo[d] = lo.get(d, 0.0) + 1.0 / (61 + w)
+            hi[d] = hi.get(d, 0.0) + 1.0 / (61 + b)
+    for d, sc in got:
+        require(d in lo and lo[d] * (1 - 1e-6) <= sc <= hi[d] * (1 + 1e-6),
+                f"{what}: doc {d} fused {sc}, its ranks allow "
+                f"[{lo.get(d)}, {hi.get(d)}]")
+    kept = {d for d, _ in got}
+    last = got[-1][1] if got else 0.0
+    sure = [d for d in lo if d not in kept and lo[d] > last * (1 + 1e-6)]
+    require(not sure, f"{what}: {sure[:3]} must rank above the last hit")
+
+
+class _Replay:
+    """An embedder that returns, for each text, the row another embedder
+    gave it (so a second engine indexes and queries the same vectors)."""
+
+    def __init__(self, rows):
+        self.rows = rows
+
+    def embed(self, texts):
+        return np.stack([self.rows[t] for t in texts])
+
+
+def _probe_engine(work, ckpt, device, docs):
+    """``build_orama`` on ``device`` with ``ai.embedding_checkpoint_path``
+    at ``ckpt`` (as tests/test_torch_semantic.py configures it), and the
+    ``topics`` collection made; ``docs`` are written, embedded and
+    committed by ``_probe_ingest``."""
+    from orama_core_tpu_torch import build_orama
+    from orama_core_tpu_torch.config import OramaxConfig
+
+    shutil.rmtree(work, ignore_errors=True)
+    cfg = OramaxConfig()
+    cfg.writer_side.data_dir = os.path.join(work, "w")
+    cfg.reader_side.data_dir = os.path.join(work, "r")
+    cfg.ai.backend = "jax"
+    cfg.ai.embedding_model = "bge-small"
+    cfg.writer_side.default_embedding_model = "bge-small"
+    cfg.ai.embedding_checkpoint_path = ckpt
+    return build_orama(cfg, start_background=False, device=device)
+
+
+def _probe_ingest(e, docs):
+    e.write_side.create_collection("master", "topics", "rk", "wk")
+    e.flush()
+    for i in range(0, len(docs), 512):
+        e.write_side.write("topics", docs[i:i + 512], "wk")
+    e.flush()
+    e.commit()
+
+
+def _probe_search(e, term, mode, limit):
+    from orama_core_tpu_torch.types import SearchParams
+
+    r = e.read_side.search("topics", SearchParams.from_json(
+        {"term": term, "mode": mode, "limit": limit}), "rk")
+    return [(h.id, h.score) for h in r.hits], r.count
+
+
+PROBE_MODES = {"vector": "vector", "hybrid": "hybrid", "phrase": "fulltext"}
+
+
+def engine_probe(ckpt, device="cuda", n_docs=ENGINE_PROBE_DOCS,
+                 n_queries=ENGINE_PROBE_QUERIES, seed=ENGINE_PROBE_SEED,
+                 limit=10):
+    """The slice's main path: ``build_orama`` with
+    ``ai.embedding_checkpoint_path`` at the port-trained checkpoint,
+    ``n_docs`` held-out B passages of ``gen_pairs`` ingested, embedded and
+    committed on ``device``, then the first ``n_queries`` pairs' A sides
+    (their query prefix cut: the engine adds bge-small's own) as vector,
+    hybrid RRF and phrase (full-text, every word of the A side) queries
+    for the top ``limit``. Topic accuracy@1 (the top hit's topic is the
+    query's) is at least 0.85 in each mode, with K1, K2, K3 and K4
+    launched. A query's own pair shares no topic word with it, so full
+    text finds the topic through the other passages of it.
+
+    Held to the plain versions twice, on the card:
+      * each kernel's first 8 calls in each mode (``KeptCalls``) against
+        its plain twin on the same arguments;
+      * every query against a CPU engine (the plain twins throughout) that
+        indexed and queried the rows the card's encoder gave (so only the
+        search differs): ``check_hits`` at 1e-4, counts equal (vector and
+        hybrid within 2: a similarity within rounding of zero may change
+        sign). RRF fuses ranks over the whole corpus, so where two docs of
+        a component tie within rounding, anywhere in its list, the card's
+        order and the CPU's may differ, and with them the fused scores: a
+        hybrid query whose hits differ is held by ``check_rrf_hits`` to
+        the CPU engine's full fulltext and vector lists instead.
+    Returns (record, launches)."""
+    import torch
+
+    from orama_core_tpu_torch.models import train_encoder as te
+    from orama_core_tpu_torch.models.encoder import EncoderEmbedder
+    from orama_core_tpu_torch.ops import _cuda
+
+    a_rows, b_rows, topics = te.gen_pairs(np.random.default_rng(seed),
+                                          te.TOPIC_WORDS, n_docs)
+    docs = [{"id": str(i), "body": b} for i, b in enumerate(b_rows)]
+    queries = [a[len(te.QUERY_PREFIX):] for a in a_rows[:n_queries]]
+    work = os.path.join(TRAIN_DIR, "engine")
+    e = _probe_engine(os.path.join(work, "card"), ckpt, device, docs)
+    cpu = kept = None
+    try:
+        emb = e.ai._embedder("bge-small")
+        require(isinstance(emb, EncoderEmbedder)
+                and emb.device == torch.device(device),
+                f"engine probe: the trained checkpoint did not load ({emb!r})")
+        rows, embed = {}, emb.embed
+
+        def embed_kept(texts):
+            out = embed(texts)
+            rows.update(zip(texts, out))
+            return out
+
+        emb.embed = embed_kept
+        t0 = time.perf_counter()
+        _probe_ingest(e, docs)
+        _sync(device)
+        ingest_s = time.perf_counter() - t0
+        vf = next(iter(e.read_side._reader("topics")._vector.values()))
+        require(vf.committed.n_vectors == n_docs,
+                f"engine probe: {vf.committed.n_vectors} vector rows")
+        rec = {"docs": n_docs, "queries": n_queries, "limit": limit,
+               "ingest_s": ingest_s}
+        got = {}
+        kept = KeptCalls()
+        _cuda.reset_launches()
+        for name, mode in PROBE_MODES.items():
+            kept.mode = name
+            got[name], lat = [], []
+            for q in queries:
+                t1 = time.perf_counter()
+                got[name].append(_probe_search(e, q, mode, limit))
+                lat.append((time.perf_counter() - t1) * 1e3)
+            top = np.asarray([int(h[0][0]) if h else -1
+                              for h, _n in got[name]])
+            rec[name] = {
+                "topic_acc": float(np.mean((top >= 0) & (
+                    topics[np.maximum(top, 0)] == topics[:n_queries]))),
+                "pair_acc": float(np.mean(top == np.arange(n_queries))),
+                "p50_ms": float(np.percentile(lat, 50)),
+            }
+        launches = dict(_cuda.LAUNCHES)
+        rec["launches"] = dict(launches)
+        kept.restore()
+        rec["kernels_vs_plain"] = kept.check()
+        # the same collection on the CPU from the card's encoder rows
+        t0 = time.perf_counter()
+        cpu = _probe_engine(os.path.join(work, "cpu"), ckpt, "cpu", docs)
+        cpu.ai._embedders["bge-small"] = _Replay(rows)
+        _probe_ingest(cpu, docs)
+        tie_reordered = 0
+        for name, mode in PROBE_MODES.items():
+            for q, (hits, n) in zip(queries, got[name]):
+                want, want_n = _probe_search(cpu, q, mode, limit)
+                what = f"engine probe {name} {q!r} vs CPU"
+                require(abs(n - want_n) <= (0 if name == "phrase" else 2),
+                        f"{what}: count {n} vs {want_n}")
+                try:
+                    check_hits(hits, want, 1e-4, what)
+                except SmokeFailure:
+                    if name != "hybrid":
+                        raise
+                    check_rrf_hits(hits, [
+                        _probe_search(cpu, q, part, n_docs)[0]
+                        for part in ("fulltext", "vector")], 1e-4, what)
+                    tie_reordered += 1
+        rec["vs_cpu"] = {"queries": 3 * n_queries,
+                         "hybrid_tie_reordered": tie_reordered,
+                         "s": time.perf_counter() - t0}
+    finally:
+        if kept is not None:
+            kept.restore()
+        e.close()
+        if cpu is not None:
+            cpu.close()
+        shutil.rmtree(work, ignore_errors=True)
+    for name in PROBE_MODES:
+        require(rec[name]["topic_acc"] >= 0.85,
+                f"engine probe: {name} topic accuracy {rec[name]['topic_acc']}")
+    if torch.device(device).type == "cuda":
+        for k in PROBE_TWINS:
+            require(launches[k] > 0, f"engine probe: {k} was never launched")
+    log(f"train engine probe {rec}")
+    return rec, launches
+
+
+def train_tools(ckpt):
+    """The two tools on the card. ``warm_cache`` runs as its own process
+    after the kernel libraries are deleted, so it must build all six;
+    then, in this process with the libraries unloaded, the first query of
+    a fresh engine loads them as built (no library is rebuilt: their
+    files keep their times) and launches K1 and K4. ``prepare_checkpoint``
+    validates the port-trained directory with a smoke forward on the card."""
+    import contextlib
+    import io
+
+    from orama_core_tpu_torch import build_orama
+    from orama_core_tpu_torch.config import OramaxConfig
+    from orama_core_tpu_torch.ops import _cuda
+    from orama_core_tpu_torch.tools import prepare_checkpoint
+    from orama_core_tpu_torch.types import SearchParams
+
+    names = list(_cuda.SIGNATURES)
+    for n in names:
+        lib = os.path.join(_cuda.BUILD, f"lib{n}.so")
+        if os.path.exists(lib):
+            os.remove(lib)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "orama_core_tpu_torch.tools.warm_cache",
+         "--docs", "2000"], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=300)
+    wall_s = time.perf_counter() - t0
+    require(out.returncode == 0, f"warm_cache failed:\n{out.stderr[-3000:]}")
+    warm = json.loads(out.stdout.strip().splitlines()[-1])
+    require(sorted(warm["kernels_built"]) == sorted(names)
+            and warm["caches"] >= 1, f"warm_cache: {warm}")
+    mtimes = {n: os.path.getmtime(os.path.join(_cuda.BUILD, f"lib{n}.so"))
+              for n in names}
+    with _cuda._lock:
+        _cuda._libs.clear()
+    work = os.path.join(TRAIN_DIR, "warm_query")
+    shutil.rmtree(work, ignore_errors=True)
+    cfg = OramaxConfig()
+    cfg.writer_side.data_dir = os.path.join(work, "w")
+    cfg.reader_side.data_dir = os.path.join(work, "r")
+    e = build_orama(cfg, start_background=False, device="cuda")
+    try:
+        e.write_side.create_collection("master", "c", "rk", "wk")
+        e.write_side.write("c", [
+            {"id": str(i), "body": f"warm document {i} alpha beta gamma"}
+            for i in range(64)], "wk")
+        e.flush()
+        e.commit()
+        _cuda.reset_launches()
+        t1 = time.perf_counter()
+        r = e.read_side.search("c", SearchParams.from_json(
+            {"term": "alpha beta"}), "rk")
+        first_query_ms = (time.perf_counter() - t1) * 1e3
+        first = dict(_cuda.LAUNCHES)
+    finally:
+        e.close()
+        shutil.rmtree(work, ignore_errors=True)
+    rebuilt = [n for n in names if os.path.getmtime(
+        os.path.join(_cuda.BUILD, f"lib{n}.so")) != mtimes[n]]
+    require(r.count == 64 and first["bm25_scan"] > 0
+            and first["phrase_counts"] > 0 and not rebuilt
+            and all(_cuda._fresh(n) for n in names),
+            f"first query after warm_cache: count {r.count}, launches "
+            f"{first}, rebuilt {rebuilt}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = prepare_checkpoint.main([ckpt])
+    text = buf.getvalue()
+    require(rc == 0 and "smoke forward ok: embedding (1, 96)" in text,
+            f"prepare_checkpoint:\n{text}")
+    rec = {"warm_cache": {k: warm[k] for k in (
+               "kernels_built", "caches", "build_s", "warm_s", "seconds")},
+           "warm_cache_wall_s": wall_s, "first_query_ms": first_query_ms,
+           "first_query_launches": first, "rebuilt": rebuilt,
+           "prepare_checkpoint": text.strip().splitlines()[:3]}
+    log(f"train tools {rec}")
+    return rec, first
+
+
+def phase_train(card):
+    """This slice's phase: the encoder trained on the card at the script's
+    defaults and at jax-minilm's width, the card's gradients against the
+    CPU's, the engine served from the port-trained checkpoint (the main
+    path: K1-K4 launched), and the warm_cache and prepare_checkpoint
+    tools. Returns the ``{"train": ...}`` record and the phase's kernel
+    launches."""
+    t0 = time.perf_counter()
+    ckpt = os.path.join(TRAIN_DIR, "tiny-semantic")
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    rec = {"default": train_default(ckpt)}
+    rec["card_vs_cpu"] = train_card_vs_cpu()
+    rec["minilm"] = train_minilm()
+    rec["engine"], launches = engine_probe(ckpt)
+    rec["tools"], tool_launches = train_tools(ckpt)
+    for k, v in tool_launches.items():
+        launches[k] += v
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    rec["wall_s"] = time.perf_counter() - t0
+    return rec, launches
+
+
 def main() -> int:
     import torch
 
@@ -3643,6 +4291,10 @@ def main() -> int:
     for rec in records:
         rec["launches"] += tp_launches.get(rec["name"], 0)
     print(json.dumps({"tp": tp, "card": card}), flush=True)
+    train, train_launches = phase_train(card)
+    for rec in records:
+        rec["launches"] += train_launches.get(rec["name"], 0)
+    print(json.dumps({"train": train, "card": card}), flush=True)
     print(json.dumps({"p50_ms": p50, "card": card}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": records}), flush=True)

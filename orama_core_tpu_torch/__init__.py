@@ -62,17 +62,25 @@ def configure_torch() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def require_device(device) -> torch.device:
+    """``device`` as a torch device. A CUDA device that is not there
+    raises: nothing runs on the CPU in its place."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} requested but no CUDA device is "
+            "available; pass device='cpu' to run the plain torch versions"
+        )
+    return dev
+
+
 class Orama:
     """The assembled engine (the reference's (WriteSide, ReadSide) pair)."""
 
     def __init__(self, cfg: OramaxConfig, start_background: bool = True) -> None:
         configure_torch()
         self.cfg = cfg
-        if cfg.gpu.device.startswith("cuda") and not torch.cuda.is_available():
-            raise RuntimeError(
-                "device 'cuda' requested but no CUDA device is available; "
-                "pass device='cpu' to run the plain torch versions"
-            )
+        require_device(cfg.gpu.device)
         if cfg.ai.remote_url:
             # the models run on the sidecar; search still runs on
             # cfg.gpu.device. A missing grpc raises here, naming the

@@ -97,6 +97,18 @@ def params_from_numpy(tree: Dict[str, Any], cfg: EncoderConfig,
     return out
 
 
+def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
+    """The inverse of ``params_from_numpy``: the port's parameters -> the
+    reference's pytree (the same nested dicts and lists) of f32 numpy
+    arrays on the host, e.g. to run them through the reference's
+    ``encode``."""
+    if isinstance(params, dict):
+        return {k: params_to_numpy(v) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [params_to_numpy(v) for v in params]
+    return params.detach().to("cpu", torch.float32).numpy()
+
+
 def init_params(cfg: EncoderConfig, generator: Optional[torch.Generator] = None,
                 device="cuda") -> Dict[str, Any]:
     """Random parameters (normal, std 0.02; zero biases; unit norms) drawn

@@ -69,6 +69,36 @@ def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
     return out
 
 
+def write_safetensors(tensors: Dict[str, torch.Tensor], path: str) -> None:
+    """The inverse of ``read_safetensors``: {name: tensor} -> a
+    ``.safetensors`` file, laid out as the ``safetensors`` package lays it
+    out: larger items first and then by name (every offset stays aligned
+    to its item size), a compact JSON header padded with spaces to a
+    multiple of 8 bytes, then the raw little-endian bytes. Written to a
+    temporary file and renamed into place."""
+    names = {v: k for k, v in _SAFETENSORS_DTYPES.items()}
+    order = sorted(tensors, key=lambda k: (-tensors[k].element_size(), k))
+    header: Dict[str, Any] = {}
+    blobs = []
+    offset = 0
+    for name in order:
+        t = tensors[name].detach().to("cpu").contiguous()
+        raw = t.reshape(-1).view(torch.uint8).numpy().tobytes()
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(raw)]}
+        blobs.append(raw)
+        offset += len(raw)
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    tmp = f"{path}.tmp"
+    with open(tmp, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for raw in blobs:
+            f.write(raw)
+    os.replace(tmp, path)
+
+
 def _load_state_dict(path: str) -> Optional[Dict[str, torch.Tensor]]:
     try:
         candidates = [
@@ -167,6 +197,92 @@ def _load_encoder_checkpoint(path: str):
             }
         )
     return cfg, params
+
+
+_BERT_SPECIALS = {"pad_token": "[PAD]", "unk_token": "[UNK]",
+                  "cls_token": "[CLS]", "sep_token": "[SEP]",
+                  "mask_token": "[MASK]"}
+
+
+def export_bert_checkpoint(params, cfg, vocab: Sequence[str], out: str,
+                           trained_by: str = "orama_core_tpu_torch") -> None:
+    """The encoder's parameters -> an HF BERT checkpoint directory at
+    ``out``, the exact inverse of ``load_encoder_checkpoint``'s map:
+    ``config.json``, ``model.safetensors`` (f32, weights transposed to
+    HF's [out, in], token-type rows zero so folding row 0 into ``pos_emb``
+    changes nothing), ``vocab.txt`` and BertTokenizer's
+    ``tokenizer_config.json`` and ``special_tokens_map.json`` (written as
+    JSON here: no ``transformers`` needed). ``params``: the port's tensors
+    or the reference's numpy pytree."""
+    from .encoder import params_to_numpy
+
+    tree = params_to_numpy(params)
+    os.makedirs(out, exist_ok=True)
+    sd: Dict[str, torch.Tensor] = {}
+
+    def put(name, arr):
+        sd[name] = torch.from_numpy(np.ascontiguousarray(arr, np.float32))
+
+    def dense(name, d):
+        put(name + ".weight", np.asarray(d["w"]).T)
+        put(name + ".bias", d["b"])
+
+    put("embeddings.word_embeddings.weight", tree["tok_emb"])
+    put("embeddings.position_embeddings.weight", tree["pos_emb"])
+    put("embeddings.token_type_embeddings.weight",
+        np.zeros((2, cfg.hidden), np.float32))
+    put("embeddings.LayerNorm.weight", tree["emb_ln"]["g"])
+    put("embeddings.LayerNorm.bias", tree["emb_ln"]["b"])
+    for i, lp in enumerate(tree["layers"]):
+        pre = f"encoder.layer.{i}."
+        dense(pre + "attention.self.query", lp["q"])
+        dense(pre + "attention.self.key", lp["k"])
+        dense(pre + "attention.self.value", lp["v"])
+        dense(pre + "attention.output.dense", lp["o"])
+        put(pre + "attention.output.LayerNorm.weight", lp["ln1"]["g"])
+        put(pre + "attention.output.LayerNorm.bias", lp["ln1"]["b"])
+        dense(pre + "intermediate.dense", lp["up"])
+        dense(pre + "output.dense", lp["down"])
+        put(pre + "output.LayerNorm.weight", lp["ln2"]["g"])
+        put(pre + "output.LayerNorm.bias", lp["ln2"]["b"])
+    write_safetensors(sd, os.path.join(out, "model.safetensors"))
+
+    def dump(name, obj):
+        with open(os.path.join(out, name), "w", encoding="utf-8") as f:
+            json.dump(obj, f, indent=1)
+
+    dump("config.json", {
+        "model_type": "bert",
+        "vocab_size": cfg.vocab_size,
+        "hidden_size": cfg.hidden,
+        "num_hidden_layers": cfg.layers,
+        "num_attention_heads": cfg.heads,
+        "intermediate_size": cfg.mlp,
+        "max_position_embeddings": cfg.max_len,
+        "layer_norm_eps": 1e-12,
+        "hidden_act": "gelu",
+        "trained_by": trained_by,
+    })
+    with open(os.path.join(out, "vocab.txt"), "w", encoding="utf-8") as f:
+        f.write("".join(t + "\n" for t in vocab))
+    index = {t: i for i, t in enumerate(vocab)}
+    dump("tokenizer_config.json", {
+        "added_tokens_decoder": {
+            str(index[t]): {"content": t, "lstrip": False,
+                            "normalized": False, "rstrip": False,
+                            "single_word": False, "special": True}
+            for t in sorted(_BERT_SPECIALS.values(), key=index.__getitem__)
+        },
+        "clean_up_tokenization_spaces": True,
+        "do_basic_tokenize": True,
+        "do_lower_case": True,
+        "never_split": None,
+        "strip_accents": None,
+        "tokenize_chinese_chars": True,
+        "tokenizer_class": "BertTokenizer",
+        **_BERT_SPECIALS,
+    })
+    dump("special_tokens_map.json", dict(sorted(_BERT_SPECIALS.items())))
 
 
 # -- BERT WordPiece tokenizer ------------------------------------------------

@@ -356,3 +356,52 @@ def test_tp_models_and_benchgen_load_no_jax(tmp_path):
     )
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip().endswith("ok")
+
+
+TRAINING_AND_TOOLS = ("models/train_encoder.py", "tools", "examples")
+
+
+def test_training_tools_and_examples_load_no_jax(tmp_path):
+    """The trainer, the checkpoint writer, ``tools/`` and ``examples/``
+    name neither JAX, the JAX package, ``safetensors`` nor
+    ``transformers`` in their sources (the card's machine has neither of
+    the last two), and training, export, ``prepare_checkpoint``,
+    ``warm_cache`` and an example run on the CPU without any of them in
+    the process."""
+    files = []
+    for rel in TRAINING_AND_TOOLS:
+        path = os.path.join(PKG, rel)
+        files += [path] if path.endswith(".py") else [
+            os.path.join(path, n) for n in sorted(os.listdir(path))
+            if n.endswith(".py")]
+    assert len(files) >= 9
+    for path in files:
+        mods = {m.split(".")[0] for m in _imported_modules(path)}
+        assert not mods & {"jax", "jaxlib", "orama_core_tpu", "safetensors",
+                           "transformers"}, (path, mods)
+    code = (
+        "import sys\n"
+        "from orama_core_tpu_torch.tools import train_tiny_encoder, "
+        "prepare_checkpoint, warm_cache\n"
+        "from orama_core_tpu_torch.examples import quickstart, serving, "
+        "multilingual\n"
+        "assert train_tiny_encoder.main(['--device', 'cpu', '--steps', '40',"
+        " '--hidden', '32', '--layers', '1', '--batch', '32',"
+        " '--out', 'ck']) == 0\n"
+        "assert prepare_checkpoint.main(['ck', '--device', 'cpu']) == 0\n"
+        "assert warm_cache.main(['--device', 'cpu', '--docs', '50']) == 0\n"
+        "assert quickstart.main(device='cpu', workdir='qs')[0][1]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'orama_core_tpu', 'safetensors', 'transformers')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.dirname(PKG) + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().endswith("ok")

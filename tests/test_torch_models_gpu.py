@@ -210,3 +210,61 @@ def test_semantic_ranking_on_card(tmp_path):
             assert r.hits[0].id == topic, (q, [h.id for h in r.hits])
     finally:
         e.close()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hidden,layers,heads", [(96, 2, 4), (384, 6, 12)])
+def test_training_on_card_matches_cpu(hidden, layers, heads):
+    """The trainer (models/train_encoder.py) at the script's default size
+    and at jax-minilm's width and depth, f32: one batch's loss and
+    gradients on the card against the CPU from the same parameters, with
+    the CPU parity test's limits (tests/test_torch_train_encoder.py: loss
+    relative 1e-5, each leaf within 1e-4 of its largest magnitude, the key
+    biases' zero gradient below 1e-6 of the largest); then three Adam
+    steps, losses within relative 1e-5, 99.9% of the parameters within
+    2e-3 lr and 99.99% within 0.05 lr. The largest is not bounded: Adam
+    turns rounding noise in a gradient below its eps into an update of up
+    to lr, so a few of the 10.9M parameters at hidden 384 part by a good
+    part of lr (chip_smoke.py's train line records the spread)."""
+    _need_card()
+    from orama_core_tpu_torch.models import encoder as enc
+    from orama_core_tpu_torch.models import train_encoder as te
+
+    vocab = te.build_vocab()
+    cfg = te.train_config(len(vocab), hidden=hidden, layers=layers,
+                          heads=heads)
+    start = enc.init_params(cfg, torch.Generator().manual_seed(hidden), "cpu")
+    batch = [x.numpy() for x in te.sample_batch(
+        np.random.default_rng(0), te.TrainTokenizer(vocab), 96, "cpu")]
+    cpu_loss, cpu_grads = te.loss_and_grads(start, cfg, batch, "cpu")
+    card_loss, card_grads = te.loss_and_grads(start, cfg, batch, "cuda")
+    assert abs(card_loss - cpu_loss) <= 1e-5 * abs(cpu_loss)
+    err = te.gradient_error(card_grads, cpu_grads)
+    assert err["leaf"] <= 1e-4 and err["key_bias"] <= 1e-6, err
+    cpu, cpu_losses = te.train(cfg, 3, 32, seed=1, device="cpu", params=start)
+    card, card_losses = te.train(cfg, 3, 32, seed=1, device="cuda",
+                                 params=start)
+    assert all(t.device.type == "cuda" for t in te.leaves(card))
+    np.testing.assert_allclose(card_losses, cpu_losses, rtol=1e-5)
+    diff = torch.cat([(a.detach().cpu() - b.detach()).abs().reshape(-1)
+                      for a, b in zip(te.leaves(card), te.leaves(cpu))])
+    diff = diff.numpy() / te.LR
+    q999, q9999 = np.quantile(diff, [0.999, 0.9999])
+    assert q999 <= 2e-3 and q9999 <= 0.05, (q999, q9999, diff.max())
+
+
+@pytest.mark.gpu
+def test_trainer_raises_when_cuda_finds_no_card(tmp_path, monkeypatch):
+    """With the card hidden, ``--device cuda`` (the default) raises in the
+    library and the command line alike; nothing trains on the CPU."""
+    _need_card()
+    from orama_core_tpu_torch.models import train_encoder as te
+    from orama_core_tpu_torch.tools import train_tiny_encoder as cli
+
+    cfg = te.train_config(len(te.build_vocab()), hidden=32, layers=1)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device is available"):
+        te.train(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device is available"):
+        cli.main(["--steps", "1", "--out", str(tmp_path / "ck")])
+    assert not (tmp_path / "ck").exists()
