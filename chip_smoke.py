@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--profile]
 
-Builds the port's six hand-written Hopper kernels from
+Builds the port's hand-written Hopper kernels (eight sources) from
 ``orama_core_tpu_torch/csrc`` with nvcc (sm_90a, one process per source,
 all started together), then runs, failing at the first phase that fails:
 
@@ -158,9 +158,27 @@ held-out passages from the trained checkpoint, 256 queries each of
 vector, hybrid RRF and phrase with topic accuracy@1 at least 0.85 and
 K1-K4 launched, their calls held to the plain twins and every query to a
 CPU engine fed the card's encoder rows; ``tools/warm_cache`` as its
-own process after the kernel libraries are deleted (it builds all six;
+own process after the kernel libraries are deleted (it builds all eight;
 the next first query rebuilds none) and ``tools/prepare_checkpoint`` on
 the trained directory.
+
+Then the tune phase (one ``{"tune": ...}`` line): the kernel probes of
+``benchmarks/`` at their full shapes, driven through the port's two probe
+tools with the launch counts reset before and read after.
+``tools/knn_tune_bench`` times B1's forms (``csrc/knn_phase1_variants.cu``:
+the per-sub-block max at sub 32, 64 and 128, masked everywhere or at the
+edge, queries as [Q, D] or qt [D, Q]; k_mm's bare product rows, which
+must take at least the corpus's read time, beside torch.matmul over the
+kept rows), K2 at the same shape, B2 (K3 on qt.T at 2,560 selected
+sub-blocks) and the end-to-end rows over a 1,000,000 x 768 bf16 corpus
+and 256 queries; ``tools/bm25_scan_bench`` holds K1 and B3's four-plane
+and packed forms (``csrc/bm25_scan_variants.cu``, plan blocks of 1,024,
+4,096 and 8,192) to the numpy oracle and times them on ~998k Zipf
+postings over 1,048,576 docs. Every form is then held to its plain
+version at those shapes (B1 within 1e-5, B2 within 1e-4, the scans
+within rtol 1e-5), and each form's record joins the kernels line (B2
+as ``knn_rescore_b2``: the K3 launches of the probe's B2 row, which K3's
+own record then leaves out).
 
 With ``--profile``, each engine mode and each batch shape is also traced
 with torch.profiler (device busy share, top ops by device time and, per
@@ -194,10 +212,13 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
-BF16_FLOPS = 989e12              # dense bf16 tensor-core peak
-F32_FLOPS = 67e12                # f32 outside the tensor cores
-INT8_OPS = 1979e12               # dense int8 tensor-core peak
+sys.path.insert(0, ROOT)
+# the one yardstick of every kernel record, the probes' included: peak
+# rates, bounds, device timing and the card line
+from orama_core_tpu_torch.tools.timing import (  # noqa: E402
+    BF16_FLOPS, F32_FLOPS, HBM_BYTES_PER_S, INT8_OPS, bound_ms, card_line,
+    time_ms,
+)
 TPU_KERNELS = {
     "bm25_scan": ("orama_core_tpu_torch/csrc/bm25_scan.cu",
                   "orama_core_tpu/ops/bm25.py:324"),
@@ -212,6 +233,22 @@ TPU_KERNELS = {
         "orama_core_tpu/ops/pallas_knn.py:94"),
     "knn_subblock_max_mv": ("orama_core_tpu_torch/csrc/knn_subblock_max_mv.cu",
                             "orama_core_tpu/ops/pallas_knn.py:442"),
+    # the probe forms of benchmarks/ (the tune phase)
+    "knn_max_only": ("orama_core_tpu_torch/csrc/knn_phase1_variants.cu",
+                     "benchmarks/knn_tune_bench.py:114"),
+    "knn_max_only_edge": ("orama_core_tpu_torch/csrc/knn_phase1_variants.cu",
+                          "benchmarks/knn_tune_bench.py:136"),
+    "knn_max_only_qt": ("orama_core_tpu_torch/csrc/knn_phase1_variants.cu",
+                        "benchmarks/knn_tune_bench.py:128"),
+    "knn_phase1_rows": ("orama_core_tpu_torch/csrc/knn_phase1_variants.cu",
+                        "benchmarks/knn_tune_bench.py:122"),
+    "bm25_scan_wide": ("orama_core_tpu_torch/csrc/bm25_scan_variants.cu",
+                       "benchmarks/bm25_scan_bench.py:86"),
+    "bm25_scan_packed": ("orama_core_tpu_torch/csrc/bm25_scan_variants.cu",
+                         "benchmarks/bm25_scan_bench.py:149"),
+    # B2 is K3 itself, called on qt.T at the probe's shape
+    "knn_rescore_b2": ("orama_core_tpu_torch/csrc/knn_rescore.cu",
+                       "benchmarks/knn_tune_bench.py:350"),
 }
 N_DOCS, N_TERMS, AVG_POSTINGS, DIM = 1_000_000, 50_000, 20, 384
 
@@ -227,15 +264,6 @@ def log(*a) -> None:
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise SmokeFailure(what)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0] if out.stdout.strip() else "?"
 
 
 # -- data ---------------------------------------------------------------------
@@ -397,40 +425,6 @@ def check_hits(got, want, rtol: float, what: str) -> None:
             require({d for d, _ in got[i:j]} == {d for d, _ in want[i:j]},
                     f"{what}: ids differ at ranks {i}..{j - 1}")
         i = j
-
-
-def time_ms(fns, iters: int) -> float:
-    """Device ms per call, cycling through ``fns`` (callables on inputs
-    whose joint footprint exceeds the 50 MB L2 where the engine would find
-    them cold). A spin kernel holds the stream while the host queues all
-    the calls, so the CUDA events bracket device work only, not the
-    host's launch overhead."""
-    import torch
-
-    fns = list(fns) if isinstance(fns, (list, tuple)) else [fns]
-    for f in fns:
-        f()
-    torch.cuda.synchronize()
-    h0 = time.perf_counter()
-    for i in range(iters):
-        fns[i % len(fns)]()
-    torch.cuda.synchronize()
-    host_s = time.perf_counter() - h0           # bounds the enqueue time
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(min(2.0 * host_s + 1e-3, 5.0) * 2.0e9))  # cycles
-    t0.record()
-    for i in range(iters):
-        fns[i % len(fns)]()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / iters
-
-
-def bound_ms(bytes_moved: float, ops: float, peak_ops: float):
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / peak_ops * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def kernel_record(name, max_abs_err, ms, plain_ms, bytes_moved, ops,
@@ -4074,7 +4068,7 @@ def engine_probe(ckpt, device="cuda", n_docs=ENGINE_PROBE_DOCS,
 
 def train_tools(ckpt):
     """The two tools on the card. ``warm_cache`` runs as its own process
-    after the kernel libraries are deleted, so it must build all six;
+    after the kernel libraries are deleted, so it must build all eight;
     then, in this process with the libraries unloaded, the first query of
     a fresh engine loads them as built (no library is rebuilt: their
     files keep their times) and launches K1 and K4. ``prepare_checkpoint``
@@ -4175,13 +4169,180 @@ def phase_train(card):
     return rec, launches
 
 
+# the tune phase's kernels: the probe row whose times (the kernel's, its
+# plain version's and the library call's) the kernel's record carries
+TUNE_RECORDS = {
+    "knn_max_only": "phase1",
+    "knn_max_only_edge": "masklast",
+    "knn_max_only_qt": "qt",
+    "knn_phase1_rows": "mm",
+    "bm25_scan_wide": "pl4_4096",
+    "bm25_scan_packed": "plp_4096",
+    "knn_rescore_b2": "prescore",
+}
+
+
+def _max_err(got, want, atol: float, what: str) -> float:
+    """Max abs error of ``got``; fails beyond ``atol``."""
+    require(got.shape == want.shape, f"{what}: shape {tuple(got.shape)}")
+    err = (got - want).abs().max().item()
+    require(err <= atol, f"{what} disagrees: max err {err} > {atol}")
+    return err
+
+
+def tune_checks(inp, data):
+    """Every probe form at the probes' full shapes against its plain
+    version (f32 sums of the same bf16 products in another order): B1's
+    max forms and k_mm's rows within 1e-5 (unit-norm rows; sub 32, 64
+    and 128; masked everywhere, at the edge, and from qt), B2's K3 on
+    qt.T within 1e-4, the scans within rtol 1e-5, atol 1e-6 (atomics;
+    four planes and packed at 1,024, 4,096 and 8,192; the four-plane form
+    at 1,024 also against K1). k_mm's library yardstick, which rounds to
+    bf16, must agree within 1% of the largest product. Returns the errors
+    by row."""
+    import torch
+
+    from orama_core_tpu_torch.ops import bm25, knn
+    from orama_core_tpu_torch.tools import bm25_scan_bench, knn_tune_bench
+
+    v, q, qt, nv = inp["vecs"], inp["queries"], inp["qt"], inp["n_valid"]
+    errs = {}
+    for sub in knn.PROBE_SUBS:
+        want = knn.subblock_max_only_plain(v, q, sub, nv)
+        forms = {"phase1" if sub == 32 else f"sub{sub}":
+                 knn.subblock_max_only(v, q, sub, nv)}
+        if sub == knn_tune_bench.SUB:
+            forms["masklast"] = knn.subblock_max_only(v, q, sub, nv,
+                                                      mask="edge")
+            forms["qt"] = knn.subblock_max_only_qt(v, qt, sub, nv)
+        for name, got in forms.items():
+            _sync(v.device)
+            errs[name] = _max_err(got, want, 1e-5, f"B1 {name}")
+        del want, forms
+    bn, sub = knn_tune_bench.BN, knn_tune_bench.SUB
+    got = knn.phase1_rows(v, q, bn, sub)
+    want = knn.phase1_rows_plain(v, q, bn, sub)
+    _sync(v.device)
+    require(got.shape == (v.shape[0] // sub, q.shape[0]),
+            f"B1 k_mm: shape {got.shape}")
+    errs["mm"] = _max_err(got, want, 1e-5, "B1 k_mm")
+    lib = knn_tune_bench.mm_library(v, q).reshape(want.shape).float()
+    errs["mm_library"] = _max_err(lib, want, 1e-2 * want.abs().max().item(),
+                                  "k_mm's library call")
+    ids = knn_tune_bench.b2_selection(inp)
+    qtt = qt.T.contiguous()
+    require(ids.numel() == q.shape[0] * knn_tune_bench.K, "B2's selection")
+    got = knn.rescore_subblocks(v, qtt, ids, knn_tune_bench.K, sub)
+    want = knn.rescore_subblocks_plain(v, qtt, ids, knn_tune_bench.K, sub)
+    _sync(v.device)
+    errs["prescore"] = _max_err(got, want, 1e-4, "B2 (K3 on qt.T)")
+    del got, want, lib
+
+    dev = v.device
+    planes = [torch.as_tensor(data[k], device=dev) for k in
+              ("post_docs", "post_tf", "post_ni", "post_lens")]
+    packed = torch.as_tensor(data["packed"], device=dev)
+    scal = (float(data["boost"]), float(data["avgdl"]), float(data["nfd"]))
+    n_docs = data["n_docs"]
+    for blk in bm25.SCAN_BLOCKS:
+        bi, lo, hi, ni_b = bm25_scan_bench.plans(data, blk)
+        plan = [torch.as_tensor(a, device=dev) for a in (bi, lo, hi)]
+        ni_i32 = torch.as_tensor(ni_b.astype(np.int32), device=dev)
+        wide = bm25.bm25_scan_wide(*planes, *plan, *scal, n_docs, blk)
+        pairs = {
+            f"pl4_{blk}": (
+                wide, bm25.bm25_scan_wide_plain(*planes, *plan, *scal,
+                                                n_docs, blk)),
+            f"plp_{blk}": (
+                bm25.bm25_scan_packed(planes[0], packed, *plan, ni_i32,
+                                      *scal, n_docs, blk),
+                bm25.bm25_scan_packed_plain(planes[0], packed, *plan, ni_i32,
+                                            *scal, n_docs, blk)),
+        }
+        if blk == bm25.BLOCK:
+            pairs["pl4_vs_k1"] = (wide, bm25.bm25_scores_blocked_aligned(
+                *planes, *plan, *scal, n_docs, len(bi)))
+        for name, (got, want) in pairs.items():
+            _sync(v.device)
+            errs[name] = (got - want).abs().max().item()
+            require(torch.allclose(got, want, rtol=1e-5, atol=1e-6),
+                    f"B3 {name} disagrees: max err {errs[name]}")
+            require(int((got > 0).sum()) > n_docs // 2, f"B3 {name} scored "
+                    "too few docs")
+    return errs
+
+
+def phase_tune():
+    """This slice's phase: the kernel probes of benchmarks/ on their full
+    shapes. The main path is the two probe tools, every row
+    (``tools/knn_tune_bench.run``: B1's forms, K2 beside k_mm, B2 through
+    K3, the end-to-end rows; ``tools/bm25_scan_bench.run``: K1, its
+    four-plane and packed forms, each held to the numpy oracle first),
+    with the launch counts reset before and read after; then every form
+    against its plain version (``tune_checks``, launches not counted).
+    k_mm multiplies every tile of the corpus, so it must take at least
+    the corpus's read time: a faster time would mean skipped tiles.
+    Returns the ``{"tune": ...}`` record, the kernel records of the new
+    forms and of B2, and the phase's launches."""
+    import torch
+
+    from orama_core_tpu_torch.ops import _cuda
+    from orama_core_tpu_torch.tools import bm25_scan_bench, knn_tune_bench
+
+    t0 = time.perf_counter()
+    inp = knn_tune_bench.make_inputs()
+    data = bm25_scan_bench.zipf_postings()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    _cuda.reset_launches()
+    knn_out = knn_tune_bench.run(inp, iters=20)
+    bm25_out = bm25_scan_bench.run(data, "cuda", iters=40)
+    torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    # B2 is K3 at B2's shape: the prescore row's K3 launches are B2's, and
+    # K3's own record keeps the end-to-end rows' (other sub-blocks, shapes)
+    b2 = knn_out["results"]["prescore"]["launches"].get("knn_rescore", 0)
+    launches["knn_rescore_b2"] = b2
+    launches["knn_rescore"] -= b2
+    for name in (*TUNE_RECORDS, "bm25_scan", "knn_subblock_max"):
+        require(launches[name] > 0, f"the probes never launched {name}")
+    mm = knn_out["results"]["mm"]
+    stream_ms = inp["vecs"].numel() * 2 / HBM_BYTES_PER_S * 1e3
+    require(mm["ms"] >= stream_ms, f"k_mm took {mm['ms']} ms, under the "
+            f"corpus's read time {stream_ms} ms: tiles were skipped")
+    errs = tune_checks(inp, data)
+    rows = {**knn_out["results"], **bm25_out["results"]}
+    records = []
+    for name, row in TUNE_RECORDS.items():
+        r = rows[row]
+        src, rep = TPU_KERNELS[name]
+        err = (max(errs["phase1"], errs["sub64"], errs["sub128"])
+               if name == "knn_max_only" else
+               max(errs["pl4_1024"], errs["pl4_4096"], errs["pl4_8192"])
+               if name == "bm25_scan_wide" else
+               max(errs["plp_1024"], errs["plp_4096"], errs["plp_8192"])
+               if name == "bm25_scan_packed" else errs[row])
+        records.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": 0, "max_abs_err": float(err), "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    del inp, data
+    torch.cuda.empty_cache()
+    rec = {"knn_tune": knn_out, "bm25_scan": bm25_out, "max_err": errs,
+           "mm_stream_ms": stream_ms,
+           "launches": {k: v for k, v in launches.items() if v},
+           "setup_s": setup_s, "wall_s": time.perf_counter() - t0}
+    log(f"tune ok: {rec['launches']}, {rec['wall_s']:.1f} s")
+    return rec, records, launches
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; the port's kernels need the card")
         return 2
-    sys.path.insert(0, ROOT)
     from orama_core_tpu_torch import configure_torch
     from orama_core_tpu_torch.ops import _cuda
 
@@ -4295,6 +4456,11 @@ def main() -> int:
     for rec in records:
         rec["launches"] += train_launches.get(rec["name"], 0)
     print(json.dumps({"train": train, "card": card}), flush=True)
+    tune, tune_records, tune_launches = phase_tune()
+    records += tune_records
+    for rec in records:
+        rec["launches"] += tune_launches.get(rec["name"], 0)
+    print(json.dumps({"tune": tune, "card": card}), flush=True)
     print(json.dumps({"p50_ms": p50, "card": card}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": records}), flush=True)

@@ -1,5 +1,6 @@
-// The streaming core shared by K2 (knn_subblock_max.cu) and K6
-// (knn_subblock_max_mv.cu): the [N, D] bf16 corpus streams once through
+// The streaming core shared by K2 (knn_subblock_max.cu), K6
+// (knn_subblock_max_mv.cu) and the phase-1 probe forms of B1
+// (knn_phase1_variants.cu): the [N, D] bf16 corpus streams once through
 // the tensor cores against up to 64 resident queries, and a kernel's
 // epilogue reduces each 64-row tile of similarities in registers and
 // shared memory, so the [N, Q] similarities never reach device memory.
@@ -373,18 +374,30 @@ __device__ __forceinline__ void mma_tile(Acc<NQ>& acc, const Smem& s, int nk,
   if (leader) mbar_arrive(&s.empty[prev]);
 }
 
+// The queries' loader that consume() takes by default: queries [Q, D],
+// row-major, through load_queries.
+template <int NQ>
+struct RowQueries {
+  static __device__ __forceinline__ void load(const Smem& s,
+                                              const __nv_bfloat16* queries,
+                                              int q, int d, int q0, int nk) {
+    load_queries<NQ>(s, queries, q, d, q0, nk);
+  }
+};
+
 // The consumer warpgroup: per query chunk, the queries into shared
-// memory, then every tile of the walk through the epilogue `epi`, which
-// provides begin_chunk(q0, nq), prefetch(row) (before the tile's products)
-// and tile(acc, row) (after them).
-template <int NQ, class Epi>
+// memory (through `Loader`, which writes load_queries' layout), then
+// every tile of the walk through the epilogue `epi`, which provides
+// begin_chunk(q0, nq), prefetch(row) (before the tile's products) and
+// tile(acc, row) (after them).
+template <int NQ, class Epi, class Loader = RowQueries<NQ>>
 __device__ __forceinline__ void consume(const Smem& s, const Walk& w,
                                         const __nv_bfloat16* queries, int q,
                                         int d, Epi& epi) {
   uint32_t stage = 0, phase = 0;
   for (int c = 0; c < w.chunks; ++c) {
     const int q0 = c * NQ;
-    load_queries<NQ>(s, queries, q, d, q0, w.nk);
+    Loader::load(s, queries, q, d, q0, w.nk);
     epi.begin_chunk(q0, q - q0 < NQ ? q - q0 : NQ);
     for (long long row = w.first; row < w.r1; row += kTileRows) {
       epi.prefetch(row);

@@ -48,6 +48,14 @@ LAUNCHES: Dict[str, int] = {
     "phrase_counts": 0,
     "knn_subblock_max_int8": 0,
     "knn_subblock_max_mv": 0,
+    # the probe forms of benchmarks/ (tools/knn_tune_bench.py,
+    # tools/bm25_scan_bench.py)
+    "knn_max_only": 0,
+    "knn_max_only_edge": 0,
+    "knn_max_only_qt": 0,
+    "knn_phase1_rows": 0,
+    "bm25_scan_wide": 0,
+    "bm25_scan_packed": 0,
 }
 
 _lock = threading.Lock()
@@ -86,6 +94,20 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         # vecs, row_docs, queries, bmax, bcnt, n, d, q, sub, n_valid,
         # m_max, stream
         "knn_subblock_max_mv": [_P] * 5 + [_L, _I, _I, _I, _L, _I, _P],
+    },
+    "knn_phase1_variants": {
+        # vecs, queries (or qt), bmax, n, d, q, sub, n_valid, form, stream
+        "knn_max_only": [_P] * 3 + [_L, _I, _I, _I, _L, _I, _P],
+        # vecs, queries, out, n, d, q, bn, keep, stream
+        "knn_phase1_rows": [_P] * 3 + [_L, _I, _I, _I, _I, _P],
+    },
+    "bm25_scan_variants": {
+        # docs, tf, ni, lens, blk, lo, hi, boost, avgdl, nfd, scores,
+        # n_blocks, n_docs, block, stream
+        "bm25_scan_wide": [_P] * 7 + [_F] * 3 + [_P, _I, _L, _I, _P],
+        # docs, packed, blk, lo, hi, ni_blk, boost, avgdl, nfd, scores,
+        # n_blocks, n_docs, block, stream
+        "bm25_scan_packed": [_P] * 6 + [_F] * 3 + [_P, _I, _L, _I, _P],
     },
 }
 

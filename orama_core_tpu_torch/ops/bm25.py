@@ -9,6 +9,9 @@ hand-written Hopper kernels:
     K1  bm25_scores_blocked_aligned      csrc/bm25_scan.cu
         bm25_scores_blocked_aligned_batch (the same kernel, row ids)
     K4  phrase_boost_docmajor_windowed   csrc/phrase_counts.cu
+    B3  bm25_scan_wide, bm25_scan_packed  csrc/bm25_scan_variants.cu (K1's
+        four-plane scan at plan blocks of 1,024, 4,096 and 8,192, and its
+        packed two-plane form: the probes of tools/bm25_scan_bench.py)
 
 A wrapper launches its kernel for CUDA tensors and runs its plain torch
 version (``*_plain``, same signature) for CPU tensors; a CUDA tensor never
@@ -173,14 +176,15 @@ def bm25_scores_blocked(post_docs, post_tf, post_ni, post_lens, block_starts,
 
 def bm25_blocked_contrib_aligned(post_docs, post_tf, post_ni, post_lens,
                                  block_idx, lo_off, hi_off, field_boost,
-                                 avgdl, n_field_docs):
+                                 avgdl, n_field_docs, block: int = BLOCK):
     """The aligned block scan WITHOUT the per-doc reduction, the function
     of the reference's ``bm25_blocked_contrib_pallas`` (K1's TPU kernel):
-    (contrib f32[nb, BLOCK], docs int64[nb, BLOCK]), contributions zero
-    outside each block's [lo, hi) window."""
+    (contrib f32[nb, block], docs int64[nb, block]), contributions zero
+    outside each block's [lo, hi) window (plan blocks of ``block``
+    postings; the engine's are BLOCK)."""
     dev = post_docs.device
-    j = torch.arange(BLOCK, device=dev)[None, :]
-    idx = block_idx.long()[:, None] * BLOCK + j
+    j = torch.arange(block, device=dev)[None, :]
+    idx = block_idx.long()[:, None] * block + j
     valid = ((j >= lo_off.long()[:, None]) & (j < hi_off.long()[:, None]))
     contrib = _bm25_contrib(
         post_tf[idx], post_ni[idx], post_lens[idx], _f32(field_boost, dev),
@@ -327,6 +331,145 @@ def bm25_scores_blocked_aligned_batch(post_docs, post_tf, post_ni, post_lens,
                       lo_off, hi_off, row_id,
                       (field_boost, avgdl, n_field_docs), n_docs, n_blocks,
                       b).reshape(b, n_docs)
+
+
+# -- B3: K1's wide-block and packed forms (tools/bm25_scan_bench.py) ---------
+
+SCAN_BLOCKS = (1024, 4096, 8192)  # the bench's plan blocks
+
+
+def bm25_scan_wide_plain(post_docs, post_tf, post_ni, post_lens, block_idx,
+                         lo_off, hi_off, field_boost, avgdl, n_field_docs,
+                         n_docs: int, block: int) -> torch.Tensor:
+    """Plain torch version of ``bm25_scan_wide``: K1's function over a
+    plan of ``block``-posting blocks (the bench's ``mk_pallas4`` and its
+    segment sum) -> f32[n_docs]."""
+    contrib, docs = _in_row(*bm25_blocked_contrib_aligned(
+        post_docs, post_tf, post_ni, post_lens, block_idx, lo_off, hi_off,
+        field_boost, avgdl, n_field_docs, block=block,
+    ), n_docs)
+    out = torch.zeros(n_docs, dtype=torch.float32, device=post_docs.device)
+    return out.index_add_(0, docs.reshape(-1), contrib.reshape(-1))
+
+
+def _scan_check(planes, plan, n_blocks: int, block: int) -> None:
+    """Raise unless the B3 kernels take these planes and plan arrays."""
+    if block not in SCAN_BLOCKS:
+        raise ValueError(f"block must be one of {SCAN_BLOCKS}: {block}")
+    for name, t, dtype in planes:
+        _cuda.require(t, name, dtype, 1)
+        if t.shape != planes[0][1].shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)} != post_docs")
+        if t.shape[0] % block:
+            raise ValueError(f"{name}: pad posting arrays to a {block} "
+                             "multiple")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernel's 16-byte loads need a "
+                             "16-byte aligned tensor")
+    for name, t in plan:
+        _cuda.require(t, name, torch.int32, 1)
+        if t.shape[0] != n_blocks:
+            raise ValueError(f"{name}: expected {n_blocks} plan blocks")
+
+
+def _scan_launch(key: str, args, scalars, n_docs: int, n_blocks: int,
+                 block: int, device) -> torch.Tensor:
+    """Fill f32[n_docs] and launch ``key`` of bm25_scan_variants right
+    behind the fill, as K1 is launched."""
+    lib = _cuda.lib("bm25_scan_variants")
+    # the scalars travel as kernel arguments: a 0-d tensor is read here
+    scalars = [float(x) for x in scalars]
+    scores = torch.zeros(n_docs, dtype=torch.float32, device=device)
+    if n_docs == 0:
+        return scores
+    _cuda.LAUNCHES[key] += 1
+    _cuda.check(getattr(lib, key)(
+        *[_cuda.ptr(t) for t in args], *scalars, _cuda.ptr(scores),
+        int(n_blocks), int(n_docs), int(block), _cuda.stream(),
+    ), key)
+    return scores
+
+
+def bm25_scan_wide(post_docs, post_tf, post_ni, post_lens, block_idx,
+                   lo_off, hi_off, field_boost, avgdl, n_field_docs,
+                   n_docs: int, block: int) -> torch.Tensor:
+    """B3's ``mk_pallas4`` at ``block`` in SCAN_BLOCKS: K1's four-plane scan
+    (docs int32; tf, ni, lens f32: 16 B a posting) over an aligned plan of
+    ``block``-posting blocks (real blocks first, then pads with hi_off ==
+    0, where the kernel stops) -> f32[n_docs], summed with atomics; a doc
+    id outside [0, n_docs) is dropped. At 1,024 it computes K1's function
+    (``bm25_scores_blocked_aligned``) through the same template."""
+    n_blocks = int(block_idx.shape[0])
+    if not post_docs.is_cuda:
+        return bm25_scan_wide_plain(
+            post_docs, post_tf, post_ni, post_lens, block_idx, lo_off,
+            hi_off, field_boost, avgdl, n_field_docs, n_docs, block)
+    planes = (("post_docs", post_docs, torch.int32),
+              ("post_tf", post_tf, torch.float32),
+              ("post_ni", post_ni, torch.float32),
+              ("post_lens", post_lens, torch.float32))
+    plan = (("block_idx", block_idx), ("lo_off", lo_off), ("hi_off", hi_off))
+    _scan_check(planes, plan, n_blocks, block)
+    return _scan_launch(
+        "bm25_scan_wide", [t for _n, t, _d in planes] + [t for _n, t in plan],
+        (field_boost, avgdl, n_field_docs), n_docs, n_blocks, block,
+        post_docs.device)
+
+
+def pack_tf_lens(post_tf, post_lens) -> torch.Tensor:
+    """int32 ``tf | lens << 16`` (both below 65,536), the bench's packed
+    plane."""
+    tf = post_tf.to(torch.int64)
+    lens = post_lens.to(torch.int64)
+    return ((tf | (lens << 16)) & 0xFFFFFFFF).to(torch.int32)
+
+
+def bm25_scan_packed_plain(post_docs, packed, block_idx, lo_off, hi_off,
+                           ni_blk, field_boost, avgdl, n_field_docs,
+                           n_docs: int, block: int) -> torch.Tensor:
+    """Plain torch version of ``bm25_scan_packed``: the bench's
+    ``mk_pallas_packed`` and its segment sum -> f32[n_docs]. tf is
+    ``packed & 0xFFFF`` and lens the LOGICAL shift ``packed >> 16`` (masked
+    after torch's arithmetic shift); ni is the plan block's."""
+    dev = post_docs.device
+    j = torch.arange(block, device=dev)[None, :]
+    idx = block_idx.long()[:, None] * block + j
+    valid = ((j >= lo_off.long()[:, None]) & (j < hi_off.long()[:, None]))
+    p = packed[idx].to(torch.int64)
+    tf = (p & 0xFFFF).to(torch.float32)
+    lens = ((p >> 16) & 0xFFFF).to(torch.float32)
+    ni = ni_blk.to(torch.float32)[:, None]
+    contrib = _bm25_contrib(
+        tf, ni, lens, _f32(field_boost, dev), _f32(avgdl, dev),
+        _f32(n_field_docs, dev)) * valid.to(torch.float32)
+    contrib, docs = _in_row(contrib, post_docs[idx].long(), n_docs)
+    out = torch.zeros(n_docs, dtype=torch.float32, device=dev)
+    return out.index_add_(0, docs.reshape(-1), contrib.reshape(-1))
+
+
+def bm25_scan_packed(post_docs, packed, block_idx, lo_off, hi_off, ni_blk,
+                     field_boost, avgdl, n_field_docs, n_docs: int,
+                     block: int) -> torch.Tensor:
+    """B3's ``mk_pallas_packed`` at ``block`` in SCAN_BLOCKS: K1's scan
+    over two planes, docs int32 and ``packed`` int32 = tf | lens << 16
+    (``pack_tf_lens``), with ni int32 per plan block (``ni_blk``): 8 B a
+    posting where K1 reads 16 -> f32[n_docs], summed with atomics; a doc
+    id outside [0, n_docs) is dropped. The plan is laid out as
+    ``bm25_scan_wide``'s."""
+    n_blocks = int(block_idx.shape[0])
+    if not post_docs.is_cuda:
+        return bm25_scan_packed_plain(
+            post_docs, packed, block_idx, lo_off, hi_off, ni_blk,
+            field_boost, avgdl, n_field_docs, n_docs, block)
+    planes = (("post_docs", post_docs, torch.int32),
+              ("packed", packed, torch.int32))
+    plan = (("block_idx", block_idx), ("lo_off", lo_off), ("hi_off", hi_off),
+            ("ni_blk", ni_blk))
+    _scan_check(planes, plan, n_blocks, block)
+    return _scan_launch(
+        "bm25_scan_packed", [t for _n, t, _d in planes] + [t for _n, t in plan],
+        (field_boost, avgdl, n_field_docs), n_docs, n_blocks, block,
+        post_docs.device)
 
 
 def bm25_scores_from_spans(term_starts, post_docs, post_tf, post_ni,

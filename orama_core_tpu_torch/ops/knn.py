@@ -21,6 +21,11 @@ Exactness: every true top-k element lives in a sub-block whose max is >=
 the k-th best value, and at most k sub-blocks can have a max above it, so
 the top-k sub-blocks by max contain the true top-k.
 
+B1, the phase-1 probe forms of ``benchmarks/knn_tune_bench.py`` (K2
+without the count, masked everywhere or at the edge, queries given as
+[D, Q], and the bare product rows), live here too, for
+``tools/knn_tune_bench.py`` (csrc/knn_phase1_variants.cu).
+
 The reference pads query batches to 8 rows and selects the owner query's
 rescore row with a one-hot matmul; both are TPU layout rules, not
 contracts, and the port does neither. The K2/K3 kernels take bf16
@@ -107,6 +112,132 @@ def subblock_max(vecs: torch.Tensor, queries: torch.Tensor, sub: int,
         _cuda.stream(),
     ), "knn_subblock_max")
     return bmax, bcnt
+
+
+# -- B1: phase-1 probe forms (tools/knn_tune_bench.py) -----------------------
+
+PROBE_SUBS = (32, 64, 128)  # the bench's sub-blocks (k_base, k_sub64, k_sub128)
+_MAX_ONLY = {  # mask -> (the kernel's form, its launch count)
+    "all": (0, "knn_max_only"),
+    "edge": (1, "knn_max_only_edge"),
+}
+
+
+def subblock_max_only_plain(vecs: torch.Tensor, queries: torch.Tensor,
+                            sub: int, n_valid: int,
+                            mask: str = "all") -> torch.Tensor:
+    """Plain torch version of the probes' max forms: K2's bmax f32[N/sub,
+    Q] without the count, rows >= n_valid scoring NEG. ``mask`` says only
+    where the kernel masks ("edge": the tile that crosses n_valid), not
+    what it computes, so every row is masked here."""
+    if mask not in _MAX_ONLY:
+        raise ValueError(f"mask must be one of {tuple(_MAX_ONLY)}: {mask!r}")
+    n = vecs.shape[0]
+    sims = sims_f32(vecs, queries)                           # [N, Q]
+    rows = torch.arange(n, device=vecs.device)[:, None]
+    sims = torch.where(rows < n_valid, sims, torch.full_like(sims, NEG))
+    return sims.reshape(n // sub, sub, -1).amax(dim=1)
+
+
+def _max_only_launch(vecs, queries, qn, qd, sub, n_valid, form, key):
+    """Launch form ``form`` of knn_max_only over ``qn`` queries of width
+    ``qd`` (queries [Q, D], or qt [D, Q] for form 2)."""
+    _cuda.require(vecs, "vecs", torch.bfloat16, 2)
+    _cuda.require(queries, "queries", torch.bfloat16, 2)
+    n, d = vecs.shape
+    if qd != d:
+        raise ValueError("queries and vecs differ in dimension")
+    if d % 8 or d > _STREAM_MAX_D or sub not in PROBE_SUBS or n % sub:
+        raise ValueError(f"{key} needs D % 8 == 0, D <= {_STREAM_MAX_D}, "
+                         f"sub in {PROBE_SUBS} and N % sub == 0 (D={d}, "
+                         f"sub={sub}, N={n})")
+    if vecs.data_ptr() % 16:
+        raise ValueError(f"{key} reads the corpus through a TMA tensor map: "
+                         "vecs must start 16-byte aligned")
+    bmax = torch.empty(n // sub, qn, dtype=torch.float32, device=vecs.device)
+    lib = _cuda.lib("knn_phase1_variants")
+    _cuda.LAUNCHES[key] += 1
+    _cuda.check(lib.knn_max_only(
+        _cuda.ptr(vecs), _cuda.ptr(queries), _cuda.ptr(bmax), int(n), int(d),
+        int(qn), int(sub), int(n_valid), form, _cuda.stream(),
+    ), key)
+    return bmax
+
+
+def subblock_max_only(vecs: torch.Tensor, queries: torch.Tensor, sub: int,
+                      n_valid: int, mask: str = "all") -> torch.Tensor:
+    """B1's ``k_base`` / ``k_rmax`` / ``k_sub64`` / ``k_sub128`` (sub = 32,
+    32, 64, 128) and, with ``mask="edge"``, ``k_masklast``: the
+    per-sub-block max f32[N/sub, Q] of K2 with no count. On the card
+    ``k_base`` and ``k_rmax`` are one kernel: the reshape was a Mosaic
+    layout. Sub-blocks at or above n_valid come out as NEG without a
+    read of their rows."""
+    if not vecs.is_cuda:
+        return subblock_max_only_plain(vecs, queries, sub, n_valid, mask)
+    if mask not in _MAX_ONLY:
+        raise ValueError(f"mask must be one of {tuple(_MAX_ONLY)}: {mask!r}")
+    form, key = _MAX_ONLY[mask]
+    queries = _aligned(queries.to(torch.bfloat16).contiguous())
+    return _max_only_launch(vecs, queries, queries.shape[0],
+                            queries.shape[-1], sub, n_valid, form, key)
+
+
+def subblock_max_only_qt(vecs: torch.Tensor, qt: torch.Tensor, sub: int,
+                         n_valid: int) -> torch.Tensor:
+    """B1's ``k_qt``: ``subblock_max_only`` with the queries given as qt
+    [D, Q]. The kernel reads qt as it is (no transpose on the way in)."""
+    if not vecs.is_cuda:
+        return subblock_max_only_plain(vecs, qt.T, sub, n_valid)
+    qt = qt.to(torch.bfloat16).contiguous()
+    return _max_only_launch(vecs, qt, qt.shape[-1], qt.shape[0], sub,
+                            n_valid, 2, "knn_max_only_qt")
+
+
+def phase1_rows_plain(vecs: torch.Tensor, queries: torch.Tensor, bn: int,
+                      sub: int) -> torch.Tensor:
+    """Plain torch version of B1's ``k_mm``: f32[N/sub, Q] with
+    ``out[b * (bn/sub) + r, q] = vecs[b * bn + r] . queries[q]`` for
+    r < bn/sub, unmasked."""
+    n = vecs.shape[0]
+    keep = bn // sub
+    rows = (torch.arange(n // bn, device=vecs.device)[:, None] * bn
+            + torch.arange(keep, device=vecs.device)).reshape(-1)
+    return sims_f32(vecs[rows], queries)
+
+
+def phase1_rows(vecs: torch.Tensor, queries: torch.Tensor, bn: int,
+                sub: int) -> torch.Tensor:
+    """B1's ``k_mm``, the bare-product probe of phase 1's mainloop (see
+    the plain version). The kernel streams and multiplies every row of
+    the corpus and keeps 1/sub of them: its time is the streaming floor
+    of K2's design at this Q, not the time this output needs."""
+    if not vecs.is_cuda:
+        return phase1_rows_plain(vecs, queries, bn, sub)
+    _cuda.require(vecs, "vecs", torch.bfloat16, 2)
+    queries = _aligned(queries.to(torch.bfloat16).contiguous())
+    _cuda.require(queries, "queries", torch.bfloat16, 2)
+    n, d = vecs.shape
+    qn = queries.shape[0]
+    if queries.shape[1] != d:
+        raise ValueError("queries and vecs differ in dimension")
+    if (d % 8 or d > _STREAM_MAX_D or bn % 64 or n % bn or bn % sub
+            or sub < 1):
+        raise ValueError(f"k_mm needs D % 8 == 0, D <= {_STREAM_MAX_D}, "
+                         f"bn % 64 == 0, N % bn == 0 and bn % sub == 0 "
+                         f"(D={d}, N={n}, bn={bn}, sub={sub})")
+    if vecs.data_ptr() % 16:
+        raise ValueError("k_mm reads the corpus through a TMA tensor map: "
+                         "vecs must start 16-byte aligned")
+    keep = bn // sub
+    out = torch.empty(n // bn * keep, qn, dtype=torch.float32,
+                      device=vecs.device)
+    lib = _cuda.lib("knn_phase1_variants")
+    _cuda.LAUNCHES["knn_phase1_rows"] += 1
+    _cuda.check(lib.knn_phase1_rows(
+        _cuda.ptr(vecs), _cuda.ptr(queries), _cuda.ptr(out), int(n), int(d),
+        int(qn), int(bn), int(keep), _cuda.stream(),
+    ), "knn_phase1_rows")
+    return out
 
 
 # -- K3: rescore of selected sub-blocks ---------------------------------------

@@ -58,3 +58,50 @@ def test_k2_and_k6_share_the_streaming_core():
                     encoding="utf-8").read()
         assert '#include "knn_stream.cuh"' in text
         assert f'extern "C" int {name}(' in text
+
+
+def test_every_entry_point_is_exported_by_its_source():
+    """Each function SIGNATURES binds is a plain-C entry point of its
+    library's source, the probe forms' included (B1 on the streaming
+    core, B3 on K1's loop)."""
+    for name, fns in _cuda.SIGNATURES.items():
+        text = open(os.path.join(_cuda.CSRC, f"{name}.cu"),
+                    encoding="utf-8").read()
+        for fn in fns:
+            assert re.search(rf'extern "C" int {fn}\(', text), (name, fn)
+    text = open(os.path.join(_cuda.CSRC, "knn_phase1_variants.cu"),
+                encoding="utf-8").read()
+    assert '#include "knn_stream.cuh"' in text
+    for src in ("bm25_scan.cu", "bm25_scan_variants.cu"):
+        text = open(os.path.join(_cuda.CSRC, src), encoding="utf-8").read()
+        assert '#include "bm25_scan.cuh"' in text, src
+    for name in ("knn_max_only", "knn_max_only_edge", "knn_max_only_qt",
+                 "knn_phase1_rows", "bm25_scan_wide", "bm25_scan_packed"):
+        assert name in _cuda.LAUNCHES
+
+
+def test_sass_diff_reads_instruction_lines_and_finds_csrc(tmp_path):
+    """tools/sass_diff.py keeps only cuobjdump's instruction lines (no
+    addresses, no encodings) and takes a checkout or its csrc/."""
+    from orama_core_tpu_torch.tools import sass_diff
+
+    dump = (
+        "\tcode for sm_90a\n"
+        "        Function : _Z3fooPf\n"
+        "        /*0000*/                   LDC R1, c[0x0][0x28] ;"
+        "                     /* 0x00000a00ff017b82 */\n"
+        "                                                              "
+        "                     /* 0x000fe20000000800 */\n"
+        "        /*0010*/                   EXIT ;"
+        "                                     /* 0x000000000000794d */\n")
+    lines = [m.group(1) for m in map(sass_diff._INSTR.match,
+                                     dump.splitlines()) if m]
+    assert lines == ["LDC R1, c[0x0][0x28]", "EXIT"]
+    inner = tmp_path / "orama_core_tpu_torch" / "csrc"
+    inner.mkdir(parents=True)
+    assert sass_diff._csrc(str(tmp_path)) == str(inner)
+    assert sass_diff._csrc(str(inner)) == str(inner)
+    assert set(sass_diff.SOURCES) <= set(_cuda.SIGNATURES)
+    # every kernel that shares a header with a probe form is compared
+    assert {"knn_subblock_max", "knn_subblock_max_mv",
+            "bm25_scan"} <= set(sass_diff.SOURCES)

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: no module of ``orama_core_tpu_torch``
-imports JAX or the JAX package, by source and at run time."""
+imports JAX, the JAX package or the JAX benchmarks (``benchmarks/``), by
+source and at run time."""
 
 import ast
 import os
@@ -31,7 +32,7 @@ def test_no_jax_or_reference_import_in_sources():
             path = os.path.join(root, name)
             for mod in _imported_modules(path):
                 top = mod.split(".")[0]
-                if top in ("jax", "jaxlib") or top == "orama_core_tpu":
+                if top in ("jax", "jaxlib", "orama_core_tpu", "benchmarks"):
                     bad.append((path, mod))
     assert n_files > 30
     assert not bad, bad
@@ -362,12 +363,13 @@ TRAINING_AND_TOOLS = ("models/train_encoder.py", "tools", "examples")
 
 
 def test_training_tools_and_examples_load_no_jax(tmp_path):
-    """The trainer, the checkpoint writer, ``tools/`` and ``examples/``
-    name neither JAX, the JAX package, ``safetensors`` nor
-    ``transformers`` in their sources (the card's machine has neither of
-    the last two), and training, export, ``prepare_checkpoint``,
-    ``warm_cache`` and an example run on the CPU without any of them in
-    the process."""
+    """The trainer, the checkpoint writer, ``tools/`` (the kernel probes
+    ``knn_tune_bench`` and ``bm25_scan_bench`` among them) and
+    ``examples/`` name neither JAX, the JAX package, ``benchmarks/``,
+    ``safetensors`` nor ``transformers`` in their sources (the card's
+    machine has neither of the last two), and training, export,
+    ``prepare_checkpoint``, ``warm_cache``, both probes and an example run
+    on the CPU without any of them in the process."""
     files = []
     for rel in TRAINING_AND_TOOLS:
         path = os.path.join(PKG, rel)
@@ -375,10 +377,12 @@ def test_training_tools_and_examples_load_no_jax(tmp_path):
             os.path.join(path, n) for n in sorted(os.listdir(path))
             if n.endswith(".py")]
     assert len(files) >= 9
+    for probe in ("knn_tune_bench.py", "bm25_scan_bench.py"):
+        assert os.path.join(PKG, "tools", probe) in files
     for path in files:
         mods = {m.split(".")[0] for m in _imported_modules(path)}
-        assert not mods & {"jax", "jaxlib", "orama_core_tpu", "safetensors",
-                           "transformers"}, (path, mods)
+        assert not mods & {"jax", "jaxlib", "orama_core_tpu", "benchmarks",
+                           "safetensors", "transformers"}, (path, mods)
     code = (
         "import sys\n"
         "from orama_core_tpu_torch.tools import train_tiny_encoder, "
@@ -391,8 +395,15 @@ def test_training_tools_and_examples_load_no_jax(tmp_path):
         "assert prepare_checkpoint.main(['ck', '--device', 'cpu']) == 0\n"
         "assert warm_cache.main(['--device', 'cpu', '--docs', '50']) == 0\n"
         "assert quickstart.main(device='cpu', workdir='qs')[0][1]\n"
+        "from orama_core_tpu_torch.tools import knn_tune_bench, "
+        "bm25_scan_bench\n"
+        "assert knn_tune_bench.main(['--device', 'cpu', '--n', '3000',"
+        " '--q', '8', '--iters', '1', '--rows', 'phase1,mm,fulltier']) == 0\n"
+        "assert bm25_scan_bench.main(['--device', 'cpu', '--postings',"
+        " '5000', '--docs', '8000', '--iters', '1']) == 0\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'orama_core_tpu', 'safetensors', 'transformers')]\n"
+        "('jax', 'jaxlib', 'orama_core_tpu', 'benchmarks', 'safetensors',"
+        " 'transformers')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
