@@ -24,7 +24,8 @@ the top-k sub-blocks by max contain the true top-k.
 B1, the phase-1 probe forms of ``benchmarks/knn_tune_bench.py`` (K2
 without the count, masked everywhere or at the edge, queries given as
 [D, Q], and the bare product rows), live here too, for
-``tools/knn_tune_bench.py`` (csrc/knn_phase1_variants.cu).
+``tools/knn_tune_bench.py`` (csrc/knn_phase1_variants.cu, on the one-pass
+core csrc/knn_wide.cuh: up to 256 queries a corpus pass).
 
 The reference pads query batches to 8 rows and selects the owner query's
 rescore row with a one-hot matmul; both are TPU layout rules, not
@@ -141,16 +142,17 @@ def subblock_max_only_plain(vecs: torch.Tensor, queries: torch.Tensor,
 
 def _max_only_launch(vecs, queries, qn, qd, sub, n_valid, form, key):
     """Launch form ``form`` of knn_max_only over ``qn`` queries of width
-    ``qd`` (queries [Q, D], or qt [D, Q] for form 2)."""
+    ``qd`` (queries [Q, D], or qt [D, Q8] for form 2, Q8 = Q rounded up to
+    8). The queries stream beside the corpus, so D is bounded by nothing
+    in shared memory, unlike K2's."""
     _cuda.require(vecs, "vecs", torch.bfloat16, 2)
     _cuda.require(queries, "queries", torch.bfloat16, 2)
     n, d = vecs.shape
     if qd != d:
         raise ValueError("queries and vecs differ in dimension")
-    if d % 8 or d > _STREAM_MAX_D or sub not in PROBE_SUBS or n % sub:
-        raise ValueError(f"{key} needs D % 8 == 0, D <= {_STREAM_MAX_D}, "
-                         f"sub in {PROBE_SUBS} and N % sub == 0 (D={d}, "
-                         f"sub={sub}, N={n})")
+    if d % 8 or sub not in PROBE_SUBS or n % sub:
+        raise ValueError(f"{key} needs D % 8 == 0, sub in {PROBE_SUBS} and "
+                         f"N % sub == 0 (D={d}, sub={sub}, N={n})")
     if vecs.data_ptr() % 16:
         raise ValueError(f"{key} reads the corpus through a TMA tensor map: "
                          "vecs must start 16-byte aligned")
@@ -185,12 +187,18 @@ def subblock_max_only(vecs: torch.Tensor, queries: torch.Tensor, sub: int,
 def subblock_max_only_qt(vecs: torch.Tensor, qt: torch.Tensor, sub: int,
                          n_valid: int) -> torch.Tensor:
     """B1's ``k_qt``: ``subblock_max_only`` with the queries given as qt
-    [D, Q]. The kernel reads qt as it is (no transpose on the way in)."""
+    [D, Q]. The kernel reads qt as it is, by TMA, into wgmma's transposed
+    operand (no transpose on the way in). TMA needs rows of a multiple of
+    16 bytes, so where Q % 8 != 0 qt's rows are padded to the next
+    multiple of 8 (columns the kernel never reads)."""
     if not vecs.is_cuda:
         return subblock_max_only_plain(vecs, qt.T, sub, n_valid)
     qt = qt.to(torch.bfloat16).contiguous()
-    return _max_only_launch(vecs, qt, qt.shape[-1], qt.shape[0], sub,
-                            n_valid, 2, "knn_max_only_qt")
+    qn = qt.shape[-1]
+    if qn % 8:
+        qt = torch.nn.functional.pad(qt, (0, 8 - qn % 8))
+    return _max_only_launch(vecs, qt, qn, qt.shape[0], sub, n_valid, 2,
+                            "knn_max_only_qt")
 
 
 def phase1_rows_plain(vecs: torch.Tensor, queries: torch.Tensor, bn: int,
@@ -207,10 +215,12 @@ def phase1_rows_plain(vecs: torch.Tensor, queries: torch.Tensor, bn: int,
 
 def phase1_rows(vecs: torch.Tensor, queries: torch.Tensor, bn: int,
                 sub: int) -> torch.Tensor:
-    """B1's ``k_mm``, the bare-product probe of phase 1's mainloop (see
-    the plain version). The kernel streams and multiplies every row of
-    the corpus and keeps 1/sub of them: its time is the streaming floor
-    of K2's design at this Q, not the time this output needs."""
+    """B1's ``k_mm``, the bare product rows of phase 1 (see the plain
+    version). The kernel reads the kept rows alone (keep = bn / sub of
+    every bn-row block, through a 3-D tensor map over them) and writes
+    their f32 products: its time is this function's. keep must be a
+    multiple of 64 or divide 64, so that a 64-row box holds 64
+    consecutive kept rows."""
     if not vecs.is_cuda:
         return phase1_rows_plain(vecs, queries, bn, sub)
     _cuda.require(vecs, "vecs", torch.bfloat16, 2)
@@ -220,15 +230,14 @@ def phase1_rows(vecs: torch.Tensor, queries: torch.Tensor, bn: int,
     qn = queries.shape[0]
     if queries.shape[1] != d:
         raise ValueError("queries and vecs differ in dimension")
-    if (d % 8 or d > _STREAM_MAX_D or bn % 64 or n % bn or bn % sub
-            or sub < 1):
-        raise ValueError(f"k_mm needs D % 8 == 0, D <= {_STREAM_MAX_D}, "
-                         f"bn % 64 == 0, N % bn == 0 and bn % sub == 0 "
-                         f"(D={d}, N={n}, bn={bn}, sub={sub})")
+    keep = bn // sub if sub >= 1 and bn % sub == 0 else 0
+    if d % 8 or bn < 1 or n % bn or not keep or (keep % 64 and 64 % keep):
+        raise ValueError(f"k_mm needs D % 8 == 0, N % bn == 0, bn % sub == 0 "
+                         f"and keep = bn / sub a multiple of 64 or a divisor "
+                         f"of 64 (D={d}, N={n}, bn={bn}, sub={sub})")
     if vecs.data_ptr() % 16:
         raise ValueError("k_mm reads the corpus through a TMA tensor map: "
                          "vecs must start 16-byte aligned")
-    keep = bn // sub
     out = torch.empty(n // bn * keep, qn, dtype=torch.float32,
                       device=vecs.device)
     lib = _cuda.lib("knn_phase1_variants")

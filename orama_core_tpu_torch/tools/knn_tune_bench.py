@@ -14,10 +14,11 @@ salt=1)``), 256 unit queries from ``numpy.random.default_rng(11)``, k =
     qt          B1's k_qt: the queries given as qt [D, Q]
     sub64       B1's k_sub64: sub 64
     sub128      B1's k_sub128 (the bench's sub128full phase 1): sub 128
-    mm          B1's k_mm: the bare product rows, every tile multiplied
-                (ops.knn.phase1_rows): the mainloop's streaming floor;
-                its library_ms is torch.matmul over the kept rows, the one
-                PyTorch call that computes the same function
+    mm          B1's k_mm: the bare product rows of the first BN / SUB
+                rows of each BN-row block (ops.knn.phase1_rows), the
+                kernel reading those rows alone; its library_ms is
+                torch.matmul over the kept rows, the one PyTorch call
+                that computes the same function
     k2          K2 itself at this shape (max and count), beside mm
     prescore    B2: K3 on B2's 2,560 selected sub-blocks, queries from
                 qt.T (made once, outside the row)
@@ -172,8 +173,7 @@ def row_table(inp: Dict[str, Any]) -> Dict[str, Row]:
                   _max_work(n_pad, nv, qn, 64)),
         "sub128": (lambda: mx(v, q, 128, nv), lambda: mxp(v, q, 128, nv),
                    None, _max_work(n_pad, nv, qn, 128)),
-        # the kept rows' bytes and products: the function's own work (the
-        # kernel streams and multiplies every row of the corpus)
+        # the kept rows' bytes and products: the function's own work
         "mm": (lambda: knn.phase1_rows(v, q, BN, SUB),
                lambda: knn.phase1_rows_plain(v, q, BN, SUB),
                lambda: mm_library(v, q),

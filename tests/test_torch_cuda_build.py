@@ -62,14 +62,17 @@ def test_k2_and_k6_share_the_streaming_core():
 
 def test_every_entry_point_is_exported_by_its_source():
     """Each function SIGNATURES binds is a plain-C entry point of its
-    library's source, the probe forms' included (B1 on the streaming
-    core, B3 on K1's loop)."""
+    library's source, the probe forms' included (B1 on the one-pass core,
+    itself on the streaming core's wrappers; B3 on K1's loop)."""
     for name, fns in _cuda.SIGNATURES.items():
         text = open(os.path.join(_cuda.CSRC, f"{name}.cu"),
                     encoding="utf-8").read()
         for fn in fns:
             assert re.search(rf'extern "C" int {fn}\(', text), (name, fn)
     text = open(os.path.join(_cuda.CSRC, "knn_phase1_variants.cu"),
+                encoding="utf-8").read()
+    assert '#include "knn_wide.cuh"' in text
+    text = open(os.path.join(_cuda.CSRC, "knn_wide.cuh"),
                 encoding="utf-8").read()
     assert '#include "knn_stream.cuh"' in text
     for src in ("bm25_scan.cu", "bm25_scan_variants.cu"):

@@ -1,18 +1,22 @@
 """The kernel probes' forms on the card against their plain torch
-versions: B1's max forms (csrc/knn_phase1_variants.cu: masked everywhere
-or at the edge, queries [Q, D] or qt [D, Q], sub 32, 64 and 128), its
-bare product rows, and B3's four-plane (at 1,024 also against K1) and
-packed scans (csrc/bm25_scan_variants.cu). This file imports only torch, numpy and
+versions: B1's max forms (csrc/knn_phase1_variants.cu on the one-pass core
+csrc/knn_wide.cuh: masked everywhere or at the edge, queries [Q, D] or qt
+[D, Q], sub 32, 64 and 128), its bare product rows, and B3's four-plane
+(at 1,024 also against K1) and packed scans
+(csrc/bm25_scan_variants.cu). This file imports only torch, numpy and
 the port, so it runs on a machine with a card and no JAX:
 
     python -m pytest --noconftest -m gpu tests/test_torch_tune_gpu.py -q
 
 Every test is marked ``gpu`` and skips without a CUDA card: the kernels
-have no CPU mode. The shapes probe the streaming core's edges as
-tests/test_torch_kernels_gpu.py does for K2: query counts that pad (1,
-9) or take several corpus passes (65, 256), a width that is not a
-multiple of the 64-column box (136), n_valid inside a tile, padding rows
-of 10.0 that would show if a masked row leaked into a max."""
+have no CPU mode. The shapes probe the one-pass core's edges: query
+counts below one pass width (1, 9), at and between the widths (65, 128,
+200, 256) and past one 256-query pass (300); a width that is not a
+multiple of the 64-column box (136); corpora whose rows are not a
+multiple of the 128-row tile; n_valid at 0, inside a tile, on a tile
+edge and at N; padding rows of 10.0 that would show if a masked row
+leaked into a max; kept-row counts under one 64-row box (16, 32), one
+box (64) and two (128)."""
 
 import numpy as np
 import pytest
@@ -33,22 +37,27 @@ def _bf16(rng, shape, scale=1.0):
     return torch.tensor(x, dtype=torch.bfloat16, device="cuda")
 
 
+_N_FOR_SUB = {32: 8160, 64: 8128, 128: 8064}  # rows: no multiple of a tile
+_TILE = 128
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("q", [1, 9, 65, 256])
+@pytest.mark.parametrize("q", [1, 9, 65, 128, 200, 256, 300])
 @pytest.mark.parametrize("d", [136, 768])
 def test_max_forms_match_plain_on_card(d, q):
     """Every max form at sub 32, 64 and 128 within 1e-4 of the plain
-    version (f32 sums of exact bf16 products in another order); the edge
-    form and the qt form equal the masked form's result."""
+    version (f32 sums of exact bf16 products in another order), with
+    n_valid at N, inside a tile, on a tile edge and at 0; the edge form
+    and the qt form equal the masked form's result."""
     _need_card()
     rng = np.random.default_rng(23)
-    n = 8192
-    for n_valid in (8192, 7000, 6999, 0):
-        v = _bf16(rng, (n, d), 1.0 / np.sqrt(d))
-        v[n_valid:] = 10.0
-        qs = _bf16(rng, (q, d))
-        qt = qs.T.contiguous()
-        for sub in port.PROBE_SUBS:
+    for sub in port.PROBE_SUBS:
+        n = _N_FOR_SUB[sub]
+        for n_valid in (n, 7000, 54 * _TILE, 0):
+            v = _bf16(rng, (n, d), 1.0 / np.sqrt(d))
+            v[n_valid:] = 10.0
+            qs = _bf16(rng, (q, d))
+            qt = qs.T.contiguous()
             want = port.subblock_max_only_plain(v, qs, sub, n_valid)
             for got in (port.subblock_max_only(v, qs, sub, n_valid),
                         port.subblock_max_only(v, qs, sub, n_valid, "edge"),
@@ -58,12 +67,13 @@ def test_max_forms_match_plain_on_card(d, q):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("q", [1, 9, 65, 256])
+@pytest.mark.parametrize("q", [1, 9, 65, 256, 300])
 @pytest.mark.parametrize("bn,sub", [(1024, 32), (2048, 32), (2048, 16),
-                                    (1024, 8)])
+                                    (1024, 8), (1024, 64)])
 def test_phase1_rows_match_plain_on_card(bn, sub, q):
-    """k_mm's kept rows (bn / sub of every bn-row block: fewer than one
-    tile, one tile, or several) within 1e-4 of the plain version."""
+    """k_mm's kept rows (keep = bn / sub of every bn-row block: 16 and 32,
+    under one 64-row box; 64, one box; 128, two) within 1e-4 of the plain
+    version."""
     _need_card()
     rng = np.random.default_rng(29)
     d = 768
@@ -73,6 +83,62 @@ def test_phase1_rows_match_plain_on_card(bn, sub, q):
     want = port.phase1_rows_plain(v, qs, bn, sub)
     assert got.shape == (4 * bn // sub, q)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_probe_forms_on_two_corpora_in_turn_on_card():
+    """The max forms and k_mm on corpus A, then B (another shape), then A
+    again, each against its plain version: the cached corpus tensor maps
+    (2-D for the max forms, 3-D over the kept rows for k_mm) must follow
+    the corpus."""
+    _need_card()
+    rng = np.random.default_rng(37)
+    d, bn, sub = 768, 1024, 32
+    corpora = {n: _bf16(rng, (n, d), 1.0 / np.sqrt(d)) for n in (4096, 8192)}
+    qs = _bf16(rng, (40, d))
+    qt = qs.T.contiguous()
+    for n in (4096, 8192, 4096):
+        v = corpora[n]
+        want = port.subblock_max_only_plain(v, qs, sub, n - 100)
+        for got in (port.subblock_max_only(v, qs, sub, n - 100),
+                    port.subblock_max_only_qt(v, qt, sub, n - 100)):
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+        torch.testing.assert_close(port.phase1_rows(v, qs, bn, sub),
+                                   port.phase1_rows_plain(v, qs, bn, sub),
+                                   rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_max_forms_take_widths_past_k2s_limit_on_card():
+    """The one-pass core streams its queries beside the corpus, so a width
+    past K2's shared-memory limit (8,192) runs, against the plain
+    version."""
+    _need_card()
+    rng = np.random.default_rng(41)
+    d = port._STREAM_MAX_D + 64
+    v = _bf16(rng, (1024, d), 1.0 / np.sqrt(d))
+    qs = _bf16(rng, (9, d))
+    want = port.subblock_max_only_plain(v, qs, 64, 1000)
+    torch.testing.assert_close(port.subblock_max_only(v, qs, 64, 1000),
+                               want, rtol=0, atol=1e-4)
+    torch.testing.assert_close(
+        port.subblock_max_only_qt(v, qs.T.contiguous(), 64, 1000), want,
+        rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bn,sub", [(3072, 32), (1536, 32), (1024, 3)])
+def test_phase1_rows_refuses_kept_rows_a_box_would_split_on_card(bn, sub):
+    """k_mm's 64-row boxes must hold 64 consecutive kept rows: keep = bn /
+    sub a multiple of 64 or a divisor of 64 (96, 48 and a bn that sub does
+    not divide are refused before any launch)."""
+    _need_card()
+    v = torch.zeros(2 * bn, 64, dtype=torch.bfloat16, device="cuda")
+    qs = torch.zeros(8, 64, dtype=torch.bfloat16, device="cuda")
+    before = port._cuda.LAUNCHES["knn_phase1_rows"]
+    with pytest.raises(ValueError):
+        port.phase1_rows(v, qs, bn, sub)
+    assert port._cuda.LAUNCHES["knn_phase1_rows"] == before
 
 
 def test_max_only_refuses_an_unknown_mask():
