@@ -172,13 +172,17 @@ must take at least the corpus's read time, beside torch.matmul over the
 kept rows), K2 at the same shape, B2 (K3 on qt.T at 2,560 selected
 sub-blocks) and the end-to-end rows over a 1,000,000 x 768 bf16 corpus
 and 256 queries; ``tools/bm25_scan_bench`` holds K1 and B3's four-plane
-and packed forms (``csrc/bm25_scan_variants.cu``, plan blocks of 1,024,
-4,096 and 8,192) to the numpy oracle and times them on ~998k Zipf
-postings over 1,048,576 docs. Every form is then held to its plain
-version at those shapes (B1 within 1e-5, B2 within 1e-4, the scans
-within rtol 1e-5), and each form's record joins the kernels line (B2
-as ``knn_rescore_b2``: the K3 launches of the probe's B2 row, which K3's
-own record then leaves out).
+and packed forms (``csrc/bm25_scan_variants.cu`` on the doc-tile core
+``csrc/bm25_tiles.cuh``, plan blocks of 1,024, 4,096 and 8,192) to the
+numpy oracle and times them on ~998k Zipf postings over 1,048,576 docs.
+Every form is then held to its plain version at those shapes (B1 within
+1e-5, B2 within 1e-4, the scans within rtol 1e-5), and each form's
+record joins the kernels line (B2 as ``knn_rescore_b2``: the K3 launches
+of the probe's B2 row, which K3's own record then leaves out). The
+doc-tile kernel's repair count must not move over any of B3's calls on
+the bench's ascending windows; one call on the same data with its first
+window shuffled must match its plain version and raise the count by
+one.
 
 With ``--profile``, each engine mode and each batch shape is also traced
 with torch.profiler (device busy share, top ops by device time and, per
@@ -4195,11 +4199,12 @@ def tune_checks(inp, data):
     version (f32 sums of the same bf16 products in another order): B1's
     max forms and k_mm's rows within 1e-5 (unit-norm rows; sub 32, 64
     and 128; masked everywhere, at the edge, and from qt), B2's K3 on
-    qt.T within 1e-4, the scans within rtol 1e-5, atol 1e-6 (atomics;
-    four planes and packed at 1,024, 4,096 and 8,192; the four-plane form
-    at 1,024 also against K1). k_mm's library yardstick, which rounds to
-    bf16, must agree within 1% of the largest product. Returns the errors
-    by row."""
+    qt.T within 1e-4, the scans within rtol 1e-5, atol 1e-6 (adds in any
+    order; four planes and packed at 1,024, 4,096 and 8,192; the
+    four-plane form at 1,024 also against K1). k_mm's library yardstick,
+    which rounds to bf16, must agree within 1% of the largest product;
+    its f32-out form, where this torch has it, within 1e-5. Returns the
+    errors by row."""
     import torch
 
     from orama_core_tpu_torch.ops import bm25, knn
@@ -4229,6 +4234,13 @@ def tune_checks(inp, data):
     lib = knn_tune_bench.mm_library(v, q).reshape(want.shape).float()
     errs["mm_library"] = _max_err(lib, want, 1e-2 * want.abs().max().item(),
                                   "k_mm's library call")
+    try:
+        lib = knn_tune_bench.mm_library_f32(v, q).reshape(want.shape)
+    except (TypeError, RuntimeError, NotImplementedError):
+        lib = None  # this torch's bmm has no out_dtype
+    if lib is not None:
+        errs["mm_library_f32"] = _max_err(lib, want, 1e-5,
+                                          "k_mm's f32 library call")
     ids = knn_tune_bench.b2_selection(inp)
     qtt = qt.T.contiguous()
     require(ids.numel() == q.shape[0] * knn_tune_bench.K, "B2's selection")
@@ -4272,6 +4284,42 @@ def tune_checks(inp, data):
     return errs
 
 
+def tune_shuffled(data):
+    """One four-plane B3 call at plan blocks of 4,096 on the bench's data
+    with the first plan window's doc ids shuffled (they span two doc
+    tiles): the doc-tile check must fail, the kernel repair the call (the
+    count rises by exactly one) and the scores match the plain version
+    (rtol 1e-5, atol 1e-6). Returns the max abs error."""
+    import torch
+
+    from orama_core_tpu_torch.ops import bm25
+    from orama_core_tpu_torch.tools import bm25_scan_bench
+
+    blk = 4096
+    bi, lo, hi, _ = bm25_scan_bench.plans(data, blk)
+    docs = data["post_docs"].copy()
+    a, b = int(bi[0]) * blk + int(lo[0]), int(bi[0]) * blk + int(hi[0])
+    require(docs[b - 1] >= bm25.SCAN_TILE_DOCS, "B3's first window must "
+            "span two doc tiles")
+    np.random.default_rng(5).shuffle(docs[a:b])
+    planes = [torch.as_tensor(x, device="cuda") for x in (
+        docs, data["post_tf"], data["post_ni"], data["post_lens"])]
+    plan = [torch.as_tensor(x, device="cuda") for x in (bi, lo, hi)]
+    scal = (float(data["boost"]), float(data["avgdl"]), float(data["nfd"]))
+    n_docs = data["n_docs"]
+    before = bm25.scan_repairs()
+    got = bm25.bm25_scan_wide(*planes, *plan, *scal, n_docs, blk)
+    want = bm25.bm25_scan_wide_plain(*planes, *plan, *scal, n_docs, blk)
+    _sync("cuda")
+    repaired = bm25.scan_repairs() - before
+    require(repaired == 1, f"B3 on a shuffled window: {repaired} repairs, "
+            "expected 1")
+    err = (got - want).abs().max().item()
+    require(torch.allclose(got, want, rtol=1e-5, atol=1e-6),
+            f"B3 on a shuffled window disagrees: max err {err}")
+    return err
+
+
 def phase_tune():
     """This slice's phase: the kernel probes of benchmarks/ on their full
     shapes. The main path is the two probe tools, every row
@@ -4279,7 +4327,9 @@ def phase_tune():
     K3, the end-to-end rows; ``tools/bm25_scan_bench.run``: K1, its
     four-plane and packed forms, each held to the numpy oracle first),
     with the launch counts reset before and read after; then every form
-    against its plain version (``tune_checks``, launches not counted).
+    against its plain version (``tune_checks``, launches not counted),
+    B3's repair count unchanged over all of that, and one B3 call on a
+    shuffled window (``tune_shuffled``), repaired.
     k_mm reads its kept rows and writes their products, so it must take at
     least the time those bytes take (``_rows_work``): a faster time would
     mean skipped rows.
@@ -4287,7 +4337,7 @@ def phase_tune():
     forms and of B2, and the phase's launches."""
     import torch
 
-    from orama_core_tpu_torch.ops import _cuda
+    from orama_core_tpu_torch.ops import _cuda, bm25
     from orama_core_tpu_torch.tools import bm25_scan_bench, knn_tune_bench
 
     t0 = time.perf_counter()
@@ -4295,11 +4345,14 @@ def phase_tune():
     data = bm25_scan_bench.zipf_postings()
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    repairs = bm25.scan_repairs()
     _cuda.reset_launches()
     knn_out = knn_tune_bench.run(inp, iters=20)
     bm25_out = bm25_scan_bench.run(data, "cuda", iters=40)
     torch.cuda.synchronize()
     launches = dict(_cuda.LAUNCHES)
+    require(bm25_out["repairs"] == 0, f"B3 repaired {bm25_out['repairs']} "
+            "calls on the bench's ascending windows")
     # B2 is K3 at B2's shape: the prescore row's K3 launches are B2's, and
     # K3's own record keeps the end-to-end rows' (other sub-blocks, shapes)
     b2 = knn_out["results"]["prescore"]["launches"].get("knn_rescore", 0)
@@ -4314,6 +4367,9 @@ def phase_tune():
     require(mm["ms"] >= kept_ms, f"k_mm took {mm['ms']} ms, under its kept "
             f"rows' and products' bytes time {kept_ms} ms: rows were skipped")
     errs = tune_checks(inp, data)
+    require(bm25.scan_repairs() == repairs, "B3 repaired a call on the "
+            "bench's ascending windows")
+    errs["pl4_shuffled"] = tune_shuffled(data)
     rows = {**knn_out["results"], **bm25_out["results"]}
     records = []
     for name, row in TUNE_RECORDS.items():

@@ -11,84 +11,69 @@
 // reads four planes (docs i32, tf, ni, lens f32: 16 B a posting);
 // mk_pallas_packed reads two (docs i32 and tf | lens << 16 as i32: 8 B a
 // posting) and one ni (i32) per plan block. mk_pallas4 at 1,024 is K1's
-// function: this file's instantiation at 1,024 runs K1's own loop
-// (bm25_scan.cuh) without K1's row ids and device-side scalars, so the
-// probe can hold it against K1 at K1's own block.
+// function (without K1's row ids and device-side scalars), so the probe
+// holds it against K1 at K1's own block.
 //
-// Bound on this card: bytes, as K1: 16 or 8 B in per posting and one
-// 4-byte add out, for ~20 flops. The scattered adds into the score row
-// (L2-resident) are the floor that K1's probes measured: a bare scatter
-// of the same ~1M doc ids takes most of K1's time by itself.
+// Bound on this card: bytes: 16 or 8 B in per posting and one 4-byte
+// score out, for ~20 flops.
 //
-// Design: K1's loop (bm25_scan.cuh; bm25_scan.cu explains it),
-// instantiated at each plan block in each plane form. Packed: a lane
-// unpacks tf = p & 0xFFFF and lens = (uint32)p >> 16, and the idf comes
-// from the plan block's ni, once per chunk. The wrapper zeroes the scores
-// right before the launch, which is a programmatic dependent of that
-// fill, as K1's is. A doc id outside [0, n_docs) is dropped, as K1 drops
-// it. Sums depend on the order of the adds.
+// Design: the doc-tile scan (bm25_tiles.cuh, which explains it): each
+// block sums one tile of the score row in shared memory from the runs of
+// postings that fall in it (found by the windows' end docs and a warp
+// search, exact because doc ids ascend within each window) and writes the
+// tile once. No global atomic, no fill: the wrapper takes the row from
+// torch.empty. A window whose doc ids do not ascend still gets the
+// reference's sums: the tiles' check fails and a tail-launched block
+// re-adds every window through K1's loop (bm25_scan.cuh) and counts the
+// repair (bm25_scan_repairs). Packed: a lane unpacks tf = p & 0xFFFF and
+// lens = (uint32)p >> 16, and the idf comes from the plan block's ni, once
+// per run. A doc id outside [0, n_docs) is dropped. Sums depend on the
+// order of the shared adds.
 
 #include "bm25_scan.cuh"
+#include "bm25_tiles.cuh"
 
 namespace {
 
-// kPacked: the planes are docs and packed (tf | lens << 16), ni_blk per
-// plan block; else docs, tf, ni and lens
-template <int kBlock, bool kPacked>
-__global__ void __launch_bounds__(bm25scan::kThreads) scan_kernel(
-    const int4* __restrict__ docs, const float4* __restrict__ tf,
-    const float4* __restrict__ ni, const float4* __restrict__ lens,
-    const int4* __restrict__ packed, const int* __restrict__ ni_blk,
-    const int* __restrict__ blk, const int* __restrict__ lo,
-    const int* __restrict__ hi, float boost, float avgdl, float nfd,
-    float* __restrict__ scores, int n_blocks, long long n_docs) {
-  bm25scan::scan<kBlock, kPacked, false>(docs, tf, ni, lens, packed, ni_blk,
-                                         blk, lo, hi, nullptr, boost, avgdl,
-                                         nfd, scores, n_blocks, n_docs);
-}
-
-template <int kBlock, bool kPacked>
-int launch(const void* docs, const void* tf, const void* ni,
-           const void* lens, const void* packed, const void* ni_blk,
-           const void* blk, const void* lo, const void* hi, float boost,
-           float avgdl, float nfd, void* scores, int n_blocks,
-           long long n_docs, void* stream) {
-  return bm25scan::launch_after_fill<kBlock>(
-      scan_kernel<kBlock, kPacked>, n_blocks, stream, (const int4*)docs,
-      (const float4*)tf, (const float4*)ni, (const float4*)lens,
-      (const int4*)packed, (const int*)ni_blk, (const int*)blk,
-      (const int*)lo, (const int*)hi, boost, avgdl, nfd, (float*)scores,
-      n_blocks, n_docs);
+// bm25tiles::launch at the plan block ``block`` (1,024, 4,096 or 8,192)
+template <bool kPacked>
+int launch_at(int block, const void* docs, const void* tf, const void* ni,
+              const void* lens, const void* packed, const void* ni_blk,
+              const void* blk, const void* lo, const void* hi, float boost,
+              float avgdl, float nfd, void* scores, int n_blocks,
+              long long n_docs, void* stream) {
+  // an empty plan still launches: the kernel writes the row's zeros
+  switch (block) {
+    case 1024:
+      return bm25tiles::launch<1024, kPacked>(
+          docs, tf, ni, lens, packed, ni_blk, blk, lo, hi, boost, avgdl, nfd,
+          scores, n_blocks, n_docs, stream);
+    case 4096:
+      return bm25tiles::launch<4096, kPacked>(
+          docs, tf, ni, lens, packed, ni_blk, blk, lo, hi, boost, avgdl, nfd,
+          scores, n_blocks, n_docs, stream);
+    case 8192:
+      return bm25tiles::launch<8192, kPacked>(
+          docs, tf, ni, lens, packed, ni_blk, blk, lo, hi, boost, avgdl, nfd,
+          scores, n_blocks, n_docs, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // Four planes (docs, tf, ni, lens) at plan blocks of 1,024, 4,096 or
-// 8,192 postings -> scores f32[n_docs] (zeroed by the caller, the launch
-// before)
+// 8,192 postings -> scores f32[n_docs], every score written
 extern "C" int bm25_scan_wide(const void* docs, const void* tf,
                               const void* ni, const void* lens,
                               const void* blk, const void* lo,
                               const void* hi, float boost, float avgdl,
                               float nfd, void* scores, int n_blocks,
                               long long n_docs, int block, void* stream) {
-  if (n_blocks <= 0) return (int)cudaGetLastError();
-  switch (block) {
-    case 1024:
-      return launch<1024, false>(docs, tf, ni, lens, nullptr, nullptr, blk,
-                                 lo, hi, boost, avgdl, nfd, scores, n_blocks,
-                                 n_docs, stream);
-    case 4096:
-      return launch<4096, false>(docs, tf, ni, lens, nullptr, nullptr, blk,
-                                 lo, hi, boost, avgdl, nfd, scores, n_blocks,
-                                 n_docs, stream);
-    case 8192:
-      return launch<8192, false>(docs, tf, ni, lens, nullptr, nullptr, blk,
-                                 lo, hi, boost, avgdl, nfd, scores, n_blocks,
-                                 n_docs, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return launch_at<false>(block, docs, tf, ni, lens, nullptr, nullptr, blk,
+                          lo, hi, boost, avgdl, nfd, scores, n_blocks, n_docs,
+                          stream);
 }
 
 // Two planes (docs, packed = tf | lens << 16) and ni per plan block, at
@@ -99,21 +84,13 @@ extern "C" int bm25_scan_packed(const void* docs, const void* packed,
                                 float boost, float avgdl, float nfd,
                                 void* scores, int n_blocks, long long n_docs,
                                 int block, void* stream) {
-  if (n_blocks <= 0) return (int)cudaGetLastError();
-  switch (block) {
-    case 1024:
-      return launch<1024, true>(docs, nullptr, nullptr, nullptr, packed,
-                                ni_blk, blk, lo, hi, boost, avgdl, nfd,
-                                scores, n_blocks, n_docs, stream);
-    case 4096:
-      return launch<4096, true>(docs, nullptr, nullptr, nullptr, packed,
-                                ni_blk, blk, lo, hi, boost, avgdl, nfd,
-                                scores, n_blocks, n_docs, stream);
-    case 8192:
-      return launch<8192, true>(docs, nullptr, nullptr, nullptr, packed,
-                                ni_blk, blk, lo, hi, boost, avgdl, nfd,
-                                scores, n_blocks, n_docs, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return launch_at<true>(block, docs, nullptr, nullptr, nullptr, packed,
+                         ni_blk, blk, lo, hi, boost, avgdl, nfd, scores,
+                         n_blocks, n_docs, stream);
+}
+
+// The calls on the current device whose tiles' check failed and that the
+// kernel repaired, so far -> *out (unsigned 64-bit, host memory)
+extern "C" int bm25_scan_repairs(void* out, void* stream) {
+  return bm25tiles::repairs((unsigned long long*)out, stream);
 }

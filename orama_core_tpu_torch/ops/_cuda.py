@@ -13,6 +13,9 @@ it is not 0. ``build_all`` starts one ``nvcc`` per source at once, so a
 cold process pays the slowest build, not their sum. A library is rebuilt
 when its ``.cu`` or any shared header ``csrc/*.cuh`` is newer than it.
 
+The library whose kernel launches another (``DEVICE_LAUNCHES``) is also
+built with ``-rdc=true`` and linked with ``-lcudadevrt``.
+
 ``LAUNCHES`` counts kernel launches per kernel; a wrapper adds one where it
 launches its kernel and nowhere else, so a run can show that its main path
 went through the kernels. Nothing here runs when a module is imported.
@@ -39,6 +42,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
+# libraries whose kernels launch kernels: relocatable device code, linked
+# with the device runtime (B3's repair is a tail launch)
+DEVICE_LAUNCHES = ("bm25_scan_variants",)
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES: Dict[str, int] = {
@@ -108,6 +114,8 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         # docs, packed, blk, lo, hi, ni_blk, boost, avgdl, nfd, scores,
         # n_blocks, n_docs, block, stream
         "bm25_scan_packed": [_P] * 6 + [_F] * 3 + [_P, _I, _L, _I, _P],
+        # out (host u64), stream: the calls the doc-tile check repaired
+        "bm25_scan_repairs": [_P, _P],
     },
 }
 
@@ -143,12 +151,22 @@ def _fresh(name: str, csrc: str = CSRC, build: str = BUILD) -> bool:
     return all(built >= os.path.getmtime(p) for p in deps)
 
 
+def nvcc_command(name: str, src: str, out: str,
+                 extra: Sequence[str] = ()) -> List[str]:
+    """The nvcc command that builds library ``name`` from ``src`` into
+    ``out`` (``extra`` flags before the source)."""
+    if name not in DEVICE_LAUNCHES:
+        return [_nvcc(), *NVCC_FLAGS, *extra, "-o", out, src]
+    return [_nvcc(), *NVCC_FLAGS, "-rdc=true", *extra, "-o", out, src,
+            "-lcudadevrt"]
+
+
 def _start_build(name: str) -> subprocess.Popen:
     src, lib = _paths(name)
     os.makedirs(BUILD, exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.tmp"
     return subprocess.Popen(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+        nvcc_command(name, src, tmp),
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
     )
 

@@ -10,8 +10,9 @@ hand-written Hopper kernels:
         bm25_scores_blocked_aligned_batch (the same kernel, row ids)
     K4  phrase_boost_docmajor_windowed   csrc/phrase_counts.cu
     B3  bm25_scan_wide, bm25_scan_packed  csrc/bm25_scan_variants.cu (K1's
-        four-plane scan at plan blocks of 1,024, 4,096 and 8,192, and its
-        packed two-plane form: the probes of tools/bm25_scan_bench.py)
+        function at plan blocks of 1,024, 4,096 and 8,192, four planes or
+        packed two, on the doc-tile scan csrc/bm25_tiles.cuh: the probes
+        of tools/bm25_scan_bench.py)
 
 A wrapper launches its kernel for CUDA tensors and runs its plain torch
 version (``*_plain``, same signature) for CPU tensors; a CUDA tensor never
@@ -21,6 +22,7 @@ falls back. Scoring matches the reference formula (k=1.2, b=0.75):
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Optional
 
@@ -336,6 +338,7 @@ def bm25_scores_blocked_aligned_batch(post_docs, post_tf, post_ni, post_lens,
 # -- B3: K1's wide-block and packed forms (tools/bm25_scan_bench.py) ---------
 
 SCAN_BLOCKS = (1024, 4096, 8192)  # the bench's plan blocks
+SCAN_TILE_DOCS = 8192  # docs a tile of csrc/bm25_tiles.cuh (kTileDocs)
 
 
 def bm25_scan_wide_plain(post_docs, post_tf, post_ni, post_lens, block_idx,
@@ -360,6 +363,9 @@ def _scan_check(planes, plan, n_blocks: int, block: int) -> None:
         _cuda.require(t, name, dtype, 1)
         if t.shape != planes[0][1].shape:
             raise ValueError(f"{name}: shape {tuple(t.shape)} != post_docs")
+        if t.shape[0] >= 2**31:
+            raise ValueError(f"{name}: the kernel indexes postings with "
+                             "int32")
         if t.shape[0] % block:
             raise ValueError(f"{name}: pad posting arrays to a {block} "
                              "multiple")
@@ -374,12 +380,14 @@ def _scan_check(planes, plan, n_blocks: int, block: int) -> None:
 
 def _scan_launch(key: str, args, scalars, n_docs: int, n_blocks: int,
                  block: int, device) -> torch.Tensor:
-    """Fill f32[n_docs] and launch ``key`` of bm25_scan_variants right
-    behind the fill, as K1 is launched."""
+    """Launch ``key`` of bm25_scan_variants into f32[n_docs] from
+    ``torch.empty``: the kernel writes every score, zeros included."""
     lib = _cuda.lib("bm25_scan_variants")
     # the scalars travel as kernel arguments: a 0-d tensor is read here
     scalars = [float(x) for x in scalars]
-    scores = torch.zeros(n_docs, dtype=torch.float32, device=device)
+    if n_docs >= 2**31:
+        raise ValueError(f"n_docs {n_docs}: doc ids are int32")
+    scores = torch.empty(n_docs, dtype=torch.float32, device=device)
     if n_docs == 0:
         return scores
     _cuda.LAUNCHES[key] += 1
@@ -390,15 +398,94 @@ def _scan_launch(key: str, args, scalars, n_docs: int, n_blocks: int,
     return scores
 
 
+def scan_repairs(device="cuda") -> int:
+    """How many B3 calls on ``device`` so far found a window whose doc ids
+    do not ascend (the doc-tile check failed) and were repaired on the
+    card by K1's loop (csrc/bm25_tiles.cuh). Such a call still returns the
+    reference's sums, only slower. 0 for the CPU, where the plain versions
+    run."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return 0
+    out = ctypes.c_ulonglong(0)
+    with torch.cuda.device(device):
+        _cuda.check(_cuda.lib("bm25_scan_variants").bm25_scan_repairs(
+            ctypes.addressof(out), _cuda.stream()), "bm25_scan_repairs")
+    return int(out.value)
+
+
+def _tile_bound(docs: torch.Tensor, a: int, b: int, key: int) -> int:
+    """f(w, key) of csrc/bm25_tiles.cuh for the window docs[a:b]: ``a`` if
+    its first doc is at least ``key``, ``b`` if its last is below, else
+    the warp search's result, probe for probe (lower_bound when the window
+    ascends)."""
+    if int(docs[a]) >= key:
+        return a
+    if int(docs[b - 1]) < key:
+        return b
+    b -= 1
+    lanes = torch.arange(1, 33)
+    while b - a > 1:
+        step = -(-(b - a) // 32)
+        p = torch.clamp(a + lanes * step, max=b)
+        f = int(((p >= b) | (docs[p] >= key)).int().argmax())
+        a, b = (a if f == 0 else a + f * step), int(p[f])
+    return b
+
+
+def scan_tile_runs(post_docs, block_idx, lo_off, hi_off, n_docs: int,
+                   block: int, tile: int = SCAN_TILE_DOCS):
+    """Plain model of the doc-tile kernel's partition (B3 on the card, for
+    tests): the runs each tile of ``tile`` docs reads and its check.
+
+    Walks the plan as the kernel does (to the first hi_off <= 0; windows
+    clamped to the block) and gives tile t of each window [a, b) the run
+    [s, e): s = a for tile 0, else f(w, t * tile); e = b for the last
+    tile, else f(w, (t + 1) * tile) (``_tile_bound``). Returns (runs, ok):
+    runs[t] lists (plan block, s, e) with e > s, absolute posting
+    indices; ok is False when a run has e < s or holds a doc outside its
+    tile that the tile may not drop (tile 0 drops ids below 0, the last
+    tile ids of n_docs or more): the kernel then repairs the call."""
+    docs = post_docs.long()
+    n_tiles = -(-n_docs // tile)
+    runs = [[] for _ in range(n_tiles)]
+    ok = True
+    for i in range(int(block_idx.shape[0])):
+        if int(hi_off[i]) <= 0:
+            break
+        lo_c = min(max(int(lo_off[i]), 0), block)
+        hi_c = min(max(int(hi_off[i]), 0), block)
+        if hi_c <= lo_c:
+            continue
+        start = int(block_idx[i]) * block
+        a, b = start + lo_c, start + hi_c
+        for t in range(n_tiles):
+            s = a if t == 0 else _tile_bound(docs, a, b, t * tile)
+            e = b if t == n_tiles - 1 else _tile_bound(docs, a, b,
+                                                       (t + 1) * tile)
+            ok &= e >= s
+            if e <= s:
+                continue
+            runs[t].append((i, s, e))
+            d = docs[s:e]
+            mine = (d >= t * tile) & (d < min((t + 1) * tile, n_docs))
+            dropped = ((d < 0) & (t == 0)) | ((d >= n_docs) &
+                                              (t == n_tiles - 1))
+            ok &= bool((mine | dropped).all())
+    return runs, ok
+
+
 def bm25_scan_wide(post_docs, post_tf, post_ni, post_lens, block_idx,
                    lo_off, hi_off, field_boost, avgdl, n_field_docs,
                    n_docs: int, block: int) -> torch.Tensor:
     """B3's ``mk_pallas4`` at ``block`` in SCAN_BLOCKS: K1's four-plane scan
     (docs int32; tf, ni, lens f32: 16 B a posting) over an aligned plan of
     ``block``-posting blocks (real blocks first, then pads with hi_off ==
-    0, where the kernel stops) -> f32[n_docs], summed with atomics; a doc
+    0, where the kernel stops) -> f32[n_docs], summed per doc tile in
+    shared memory (``scan_tile_runs`` models the partition; a window whose
+    doc ids do not ascend is repaired on the card, ``scan_repairs``); a doc
     id outside [0, n_docs) is dropped. At 1,024 it computes K1's function
-    (``bm25_scores_blocked_aligned``) through the same template."""
+    (``bm25_scores_blocked_aligned``)."""
     n_blocks = int(block_idx.shape[0])
     if not post_docs.is_cuda:
         return bm25_scan_wide_plain(
@@ -453,9 +540,9 @@ def bm25_scan_packed(post_docs, packed, block_idx, lo_off, hi_off, ni_blk,
     """B3's ``mk_pallas_packed`` at ``block`` in SCAN_BLOCKS: K1's scan
     over two planes, docs int32 and ``packed`` int32 = tf | lens << 16
     (``pack_tf_lens``), with ni int32 per plan block (``ni_blk``): 8 B a
-    posting where K1 reads 16 -> f32[n_docs], summed with atomics; a doc
-    id outside [0, n_docs) is dropped. The plan is laid out as
-    ``bm25_scan_wide``'s."""
+    posting where K1 reads 16 -> f32[n_docs], summed per doc tile as
+    ``bm25_scan_wide``'s; a doc id outside [0, n_docs) is dropped. The
+    plan is laid out as ``bm25_scan_wide``'s."""
     n_blocks = int(block_idx.shape[0])
     if not post_docs.is_cuda:
         return bm25_scan_packed_plain(

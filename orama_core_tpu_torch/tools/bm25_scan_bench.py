@@ -14,7 +14,8 @@ a kernel's walk) and its block sizes. Rows:
                 call, no kernel of the port)
     k1_1024     K1 itself (csrc/bm25_scan.cu), the reference point
     pl4_1024, pl4_4096, pl4_8192   the four-plane form
-                (ops.bm25.bm25_scan_wide, csrc/bm25_scan_variants.cu)
+                (ops.bm25.bm25_scan_wide, csrc/bm25_scan_variants.cu on
+                the doc-tile core csrc/bm25_tiles.cuh)
     plp_1024, plp_4096, plp_8192   the packed form: docs and tf | lens
                 << 16 (8 B a posting), ni per plan block
                 (ops.bm25.bm25_scan_packed)
@@ -34,7 +35,9 @@ It runs on the card unless given ``--device cpu`` (the plain versions,
 host time: a rehearsal, not a measurement). It prints one JSON line,
 ``{"bench": "bm25_scan", "card": ..., "postings", "docs", "results":
 {row: {"ms", "bound_ms", "bound_by", "share", "plain_ms", "library_ms",
-"rel_err"}}}``.
+"rel_err"}}, "repairs": n}``: ``repairs`` counts the scan calls of the
+run whose doc-tile check failed and that the kernel repaired
+(``ops.bm25.scan_repairs``); the bench's windows ascend, so it is 0.
 """
 
 from __future__ import annotations
@@ -173,6 +176,7 @@ def run(data: Dict[str, Any], device, iters: int = 40) -> Dict[str, Any]:
          ("post_docs", "post_tf", "post_ni", "post_lens", "packed")}
         for _ in range(COPIES)]
     before = dict(_cuda.LAUNCHES)
+    repairs = bm25.scan_repairs(dev)
     results = {}
 
     def record(name, calls, nbytes, ops, check=None, plain_call=None):
@@ -239,6 +243,7 @@ def run(data: Dict[str, Any], device, iters: int = 40) -> Dict[str, Any]:
         "bench": "bm25_scan", "card": timing.card_line(dev),
         "clock": timing.clock(dev), "postings": p_total, "docs": n_docs,
         "terms": len(data["dfs"]), "results": results,
+        "repairs": bm25.scan_repairs(dev) - repairs,
         "launches": {k: v - before[k] for k, v in _cuda.LAUNCHES.items()
                      if v != before[k]},
     }

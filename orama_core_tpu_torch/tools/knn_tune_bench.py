@@ -18,7 +18,10 @@ salt=1)``), 256 unit queries from ``numpy.random.default_rng(11)``, k =
                 rows of each BN-row block (ops.knn.phase1_rows), the
                 kernel reading those rows alone; its library_ms is
                 torch.matmul over the kept rows, the one PyTorch call
-                that computes the same function
+                that computes the same function, which writes bf16 where
+                k_mm (and the reference's) writes f32; library_f32_ms
+                times torch.bmm(..., out_dtype=torch.float32) where the
+                card's torch has it (else null)
     k2          K2 itself at this shape (max and count), beside mm
     prescore    B2: K3 on B2's 2,560 selected sub-blocks, queries from
                 qt.T (made once, outside the row)
@@ -145,6 +148,17 @@ def mm_library(vecs: torch.Tensor, queries: torch.Tensor, bn: int = BN,
     return vecs.view(nb, bn, d)[:, :bn // sub] @ queries.T
 
 
+def mm_library_f32(vecs: torch.Tensor, queries: torch.Tensor,
+                   bn: int = BN, sub: int = SUB) -> torch.Tensor:
+    """``mm_library`` with f32 out, as k_mm writes it: one
+    ``torch.bmm(..., out_dtype=torch.float32)`` over the kept rows.
+    Raises where this torch has no ``out_dtype`` for bmm."""
+    nb, d = vecs.shape[0] // bn, vecs.shape[1]
+    return torch.bmm(vecs.view(nb, bn, d)[:, :bn // sub],
+                     queries.T.expand(nb, d, queries.shape[0]),
+                     out_dtype=torch.float32)
+
+
 Row = Tuple[Callable, Optional[Callable], Optional[Callable],
             Tuple[float, float]]
 
@@ -225,6 +239,8 @@ def run(inp: Dict[str, Any], rows: Sequence[str] = ROWS,
         results[name]["launches"] = {
             k: v - row_before[k] for k, v in _cuda.LAUNCHES.items()
             if v != row_before[k]}
+        if name == "mm":
+            results[name]["library_f32_ms"] = _f32_library_ms(inp, iters)
     return {
         "bench": "knn_tune", "card": timing.card_line(dev),
         "clock": timing.clock(dev), "n": inp["n_valid"],
@@ -233,6 +249,19 @@ def run(inp: Dict[str, Any], rows: Sequence[str] = ROWS,
         "launches": {k: v - before[k] for k, v in _cuda.LAUNCHES.items()
                      if v != before[k]},
     }
+
+
+def _f32_library_ms(inp: Dict[str, Any], iters: int) -> Optional[float]:
+    """``mm_library_f32``'s time on the card, or None where this torch
+    has no bmm with ``out_dtype`` (or off the card)."""
+    v, q, dev = inp["vecs"], inp["queries"], inp["device"]
+    if dev.type != "cuda":
+        return None
+    try:
+        mm_library_f32(v, q)
+    except (TypeError, RuntimeError, NotImplementedError):
+        return None
+    return timing.time_ms(lambda: mm_library_f32(v, q), iters, dev)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:

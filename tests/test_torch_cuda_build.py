@@ -43,7 +43,7 @@ def test_every_kernel_source_and_its_includes_exist():
     """Each library named in SIGNATURES has its csrc/<name>.cu, and every
     quoted include of a source is a header in csrc/ (so _fresh sees it)."""
     headers = {f for f in os.listdir(_cuda.CSRC) if f.endswith(".cuh")}
-    assert "knn_stream.cuh" in headers
+    assert {"knn_stream.cuh", "bm25_tiles.cuh"} <= headers
     for name in _cuda.SIGNATURES:
         src = os.path.join(_cuda.CSRC, f"{name}.cu")
         assert os.path.exists(src), src
@@ -63,7 +63,8 @@ def test_k2_and_k6_share_the_streaming_core():
 def test_every_entry_point_is_exported_by_its_source():
     """Each function SIGNATURES binds is a plain-C entry point of its
     library's source, the probe forms' included (B1 on the one-pass core,
-    itself on the streaming core's wrappers; B3 on K1's loop)."""
+    itself on the streaming core's wrappers; B3 on the doc-tile core, which
+    repairs through K1's loop)."""
     for name, fns in _cuda.SIGNATURES.items():
         text = open(os.path.join(_cuda.CSRC, f"{name}.cu"),
                     encoding="utf-8").read()
@@ -78,6 +79,15 @@ def test_every_entry_point_is_exported_by_its_source():
     for src in ("bm25_scan.cu", "bm25_scan_variants.cu"):
         text = open(os.path.join(_cuda.CSRC, src), encoding="utf-8").read()
         assert '#include "bm25_scan.cuh"' in text, src
+    # B3 on the doc-tile core, whose repair path is K1's loop: the core
+    # comes after K1's header
+    text = open(os.path.join(_cuda.CSRC, "bm25_scan_variants.cu"),
+                encoding="utf-8").read()
+    assert (0 <= text.index('#include "bm25_scan.cuh"')
+            < text.index('#include "bm25_tiles.cuh"'))
+    text = open(os.path.join(_cuda.CSRC, "bm25_tiles.cuh"),
+                encoding="utf-8").read()
+    assert "bm25scan::scan<kBlock, kPacked, false>" in text
     for name in ("knn_max_only", "knn_max_only_edge", "knn_max_only_qt",
                  "knn_phase1_rows", "bm25_scan_wide", "bm25_scan_packed"):
         assert name in _cuda.LAUNCHES

@@ -3,7 +3,11 @@ versions: B1's max forms (csrc/knn_phase1_variants.cu on the one-pass core
 csrc/knn_wide.cuh: masked everywhere or at the edge, queries [Q, D] or qt
 [D, Q], sub 32, 64 and 128), its bare product rows, and B3's four-plane
 (at 1,024 also against K1) and packed scans
-(csrc/bm25_scan_variants.cu). This file imports only torch, numpy and
+(csrc/bm25_scan_variants.cu on the doc-tile core csrc/bm25_tiles.cuh:
+rows not a multiple of a tile, shorter than one, of one doc; a tile with
+no posting over stale NaN memory; windows inside one tile and across
+many; repeated ids; ids outside the row; shuffled windows, which the
+kernel repairs and counts). This file imports only torch, numpy and
 the port, so it runs on a machine with a card and no JAX:
 
     python -m pytest --noconftest -m gpu tests/test_torch_tune_gpu.py -q
@@ -233,3 +237,147 @@ def test_packed_kernel_unpacks_with_a_logical_shift_on_card():
                               torch.tensor(1.0), torch.tensor(50.0),
                               torch.tensor(1000.0))
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+_T = bm25.SCAN_TILE_DOCS
+
+
+def _tile_case(case, rng):
+    """(n_docs, terms): each term a list of doc ids, ascending unless the
+    case is "shuffled"."""
+    def pick(lo, hi, k):
+        return sorted(rng.choice(np.arange(lo, hi), k, replace=False))
+    if case == "ragged":      # n_docs not a multiple of a tile
+        n = 3 * _T + 77
+        return n, [pick(0, n, k) for k in (12_000, 3000, 700, 5)]
+    if case == "short":       # one tile, cut at n_docs
+        return 5000, [pick(0, 5000, 2500), pick(0, 5000, 300), [4999]]
+    if case == "one_doc":
+        return 1, [[-2, 0, 0, 1, 7], [0]]
+    if case == "empty_tile":  # tile 2 has no posting
+        n = 4 * _T
+        ids = np.concatenate([np.arange(0, 2 * _T), np.arange(3 * _T, n)])
+        return n, [sorted(rng.choice(ids, 9000, replace=False))]
+    if case == "inside":      # every window inside one tile
+        return 4 * _T, [pick(_T + 10, _T + 500, 300)]
+    if case == "across":      # windows across many tiles
+        n = 20 * _T
+        return n, [pick(0, n, 3000), pick(0, n, 40)]
+    if case == "repeats":     # an id more than once in a window
+        n = 2 * _T + 5
+        return n, [sorted(rng.integers(0, n, 9000)),
+                   sorted(rng.integers(0, 300, 2000))]
+    if case == "outside":     # ids below 0 and of n_docs or more
+        n = 2 * _T + 9
+        return n, [sorted(np.concatenate([
+            rng.integers(-100, 0, 50), rng.choice(n, 5000, replace=False),
+            rng.integers(n, n + 2 * _T, 60)]))]
+    assert case == "shuffled"
+    n = 3 * _T + 5
+    return n, [list(rng.permutation(pick(0, n, 9000))), pick(0, n, 500)]
+
+
+def _tile_inputs(terms, block, rng):
+    """Planes on the card (docs, tf, ni, lens; packed), the aligned plan
+    with its pads, and ni per plan block, from the terms' doc lists."""
+    flat = np.concatenate([np.asarray(t, np.int64) for t in terms])
+    p = max(-(-len(flat) // block) * block, block)
+    pd = np.zeros(p, np.int32)
+    pd[:len(flat)] = flat
+    tf = np.zeros(p, np.float32)
+    tf[:len(flat)] = rng.integers(1, 6, len(flat))
+    lens = np.ones(p, np.float32)
+    lens[:len(flat)] = rng.integers(8, 100, len(flat))
+    dfs = [float(len(t)) for t in terms]
+    ni = np.ones(p, np.float32)
+    ni[:len(flat)] = np.repeat(dfs, [len(t) for t in terms])
+    lo = np.cumsum([0] + [len(t) for t in terms[:-1]]).tolist()
+    ln = [len(t) for t in terms]
+    nb = sum(-(-x // block) + 1 for x in ln)
+    bi, lo_o, hi_o, ni_b = bm25_scan_bench.plan_aligned(lo, ln, dfs, block,
+                                                        nb)
+    cu = [torch.tensor(a, device="cuda") for a in (pd, tf, ni, lens)]
+    plan = [torch.tensor(a, device="cuda") for a in (bi, lo_o, hi_o)]
+    ni_i32 = torch.tensor(ni_b.astype(np.int32), device="cuda")
+    return cu, bm25.pack_tf_lens(cu[1], cu[3]), plan, ni_i32
+
+
+def _stale_nan(n):
+    """Leave a NaN-filled block of n floats in the cache allocator, where
+    the wrapper's torch.empty row will find it."""
+    x = torch.full((n,), float("nan"), device="cuda")
+    ptr = x.data_ptr()
+    del x
+    y = torch.empty(n, device="cuda")
+    assert y.data_ptr() == ptr and bool(torch.isnan(y).all())
+    del y
+    x = torch.full((n,), float("nan"), device="cuda")
+    del x
+
+
+_TILE_CASES = ("ragged", "short", "one_doc", "empty_tile", "inside",
+               "across", "repeats", "outside", "shuffled")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block", bm25.SCAN_BLOCKS)
+@pytest.mark.parametrize("case", _TILE_CASES)
+def test_scan_tiles_match_plain_on_card(case, block):
+    """Both forms on the doc-tile core against their plain versions (rtol
+    1e-5, atol 1e-6: shared adds run in any order), each call into a row
+    of stale NaNs; a doc with no posting scores exactly 0. The repair
+    count rises by one a call exactly where the plain model of the
+    partition says the check fails: on shuffled windows, and nowhere
+    else."""
+    _need_card()
+    rng = np.random.default_rng(43)
+    n_docs, terms = _tile_case(case, rng)
+    cu, packed, plan, ni_i32 = _tile_inputs(terms, block, rng)
+    _, ok = bm25.scan_tile_runs(cu[0].cpu(), *[p.cpu() for p in plan],
+                                n_docs, block)
+    assert ok == (case != "shuffled")
+    scal = (1.3, 50.0, float(n_docs))
+    calls = {
+        "wide": (lambda: bm25.bm25_scan_wide(*cu, *plan, *scal, n_docs,
+                                             block),
+                 bm25.bm25_scan_wide_plain(*cu, *plan, *scal, n_docs, block)),
+        "packed": (lambda: bm25.bm25_scan_packed(
+            cu[0], packed, *plan, ni_i32, *scal, n_docs, block),
+            bm25.bm25_scan_packed_plain(cu[0], packed, *plan, ni_i32, *scal,
+                                        n_docs, block)),
+    }
+    for name, (call, want) in calls.items():
+        _stale_nan(n_docs)
+        before = bm25.scan_repairs()
+        got = call()
+        torch.cuda.synchronize()
+        assert bm25.scan_repairs() - before == (0 if ok else 1), name
+        assert not bool(torch.isnan(got).any()), name
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+        if case == "empty_tile":
+            assert bool((got[2 * _T:3 * _T] == 0).all()), name
+        assert bool((got[want == 0] == 0).all()), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block", bm25.SCAN_BLOCKS)
+def test_scan_with_an_empty_plan_writes_zeros_on_card(block):
+    """No plan block, or only pads: the row comes from torch.empty, so the
+    kernel must still run and write every score, all 0."""
+    _need_card()
+    n_docs = 3 * _T + 11
+    docs = torch.zeros(block, dtype=torch.int32, device="cuda")
+    ones = torch.ones(block, device="cuda")
+    for n_blocks in (0, 2):
+        plan = [torch.zeros(n_blocks, dtype=torch.int32, device="cuda")
+                for _ in range(3)]
+        ni_b = torch.zeros(n_blocks, dtype=torch.int32, device="cuda")
+        for call in (
+                lambda: bm25.bm25_scan_wide(docs, ones, ones, ones, *plan,
+                                            1.0, 50.0, 9.0, n_docs, block),
+                lambda: bm25.bm25_scan_packed(
+                    docs, bm25.pack_tf_lens(ones, ones), *plan, ni_b, 1.0,
+                    50.0, 9.0, n_docs, block)):
+            _stale_nan(n_docs)
+            got = call()
+            assert bool((got == 0).all())
