@@ -184,6 +184,26 @@ the bench's ascending windows; one call on the same data with its first
 window shuffled must match its plain version and raise the count by
 one.
 
+Then the entry phase (one ``{"entry": ...}`` line): the port's
+entry points. ``python -m orama_core_tpu_torch.bench``'s run at its full
+size (its five result lines; its recall@10 against the f32 exact top-k
+at least 0.95; K1, K2, K3 and K5 launched), with each of its steps timed
+again by CUDA events beside its K2 or K5 alone (where a step's time
+goes); ``tools/graft_entry``'s forward and its dry run on four mesh
+positions of card 0; ``orama_core_tpu_torch.start()`` in its own process
+on the card, answering 2,000 documents inserted over HTTP and one query
+held against an in-process engine fed the same writes (then killed);
+and the six BASELINE-config tools (``embed_bench``, ``int8_30m_bench``,
+``pq_100m_bench``, ``engine_bench``, ``sharded_int8_bench``,
+``sharded_ivfpq_bench``) at their defaults, the published widths and
+depths (``ENTRY_TOOLS``), each line checked for its metric name, finite
+positive values, its recall floor and one card, and each tool's kernel
+launches kept apart and checked for the kernels its path must run (K5
+for ``int8_30m``; K1, K4, K2 and K3 for ``engine_bench``; K2 and K3 for
+``sharded_ivfpq``'s exact reader; none for the encoder, ``pq_100m`` and
+``sharded_int8``, whose exact engine holds two embedding fields and so
+scores densely, as its script's does).
+
 With ``--profile``, each engine mode and each batch shape is also traced
 with torch.profiler (device busy share, top ops by device time and, per
 engine mode, by host self time). The
@@ -4396,6 +4416,292 @@ def phase_tune():
     return rec, records, launches
 
 
+# -- the entry phase: the port's bench, graft entry, start() and tools ----------
+
+# tool: (its metric name, or for engine_bench its first report key; the
+# least recall@10 it must reach; the kernels its path must launch). Each
+# runs at its defaults: the published widths and depths (pq_100m 100M
+# rows, engine_bench 100k documents, the sharded tools 200k rows).
+# embed_bench's encoder and pq_100m's ADC and rerank run no hand-written
+# kernel; nor does sharded_int8, as its script does: its exact engine
+# holds two embedding fields (the collection's own and the bench's), so
+# its vector queries take the dense path, and its mesh engine scores
+# int8 in plain PyTorch. sharded_ivfpq's exact reader takes the fused
+# kNN (K2 + K3); its mesh reader's IVF-PQ scores in plain PyTorch.
+ENTRY_TOOLS = {
+    "embed_bench": ("embeddings_per_sec_bge_small_seq128", None, ()),
+    "int8_30m_bench": ("int8_exact_knn_qps_30Mx384_top10_pallas", None,
+                       ("knn_subblock_max_int8",)),
+    "pq_100m_bench": ("ivf_pq_rerank_qps_100Mx384_top10", 0.7, ()),
+    "engine_bench": ("index_docs_per_sec", None,
+                     ("bm25_scan", "phrase_counts", "knn_subblock_max",
+                      "knn_rescore")),
+    "sharded_int8_bench": ("sharded_int8_recall_at_10_200k_8dev", 0.9, ()),
+    "sharded_ivfpq_bench": ("sharded_ivfpq_recall_at_10_200k_8dev", 0.95,
+                            ("knn_subblock_max", "knn_rescore")),
+}
+BENCH_RECALL_MIN = 0.95
+SPLIT_ITERS = 20
+START_DOCS, START_SEED = 2000, 23
+
+
+def bench_device_split():
+    """Where the bench's steps go: CUDA-event ms (behind a spin) of one
+    fused kNN call at 64 and 256 queries and of its K2 alone, and of one
+    int8 kNN call at 64 queries and of its K5 alone, on the bench's
+    corpus and queries (compare with the bench's host-clock ms a call),
+    SPLIT_ITERS calls each."""
+    import torch
+
+    from orama_core_tpu_torch import bench
+    from orama_core_tpu_torch.ops import knn, quant
+    from orama_core_tpu_torch.utils.benchgen import hashed_unit_corpus
+
+    n, d, iters = bench.N, bench.D, SPLIT_ITERS
+    n_pad = -(-n // bench.BN) * bench.BN
+    vecs = hashed_unit_corpus(n_pad, d, 1)
+    q = np.random.default_rng(7).standard_normal((bench.QB, d)).astype(
+        np.float32)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    q64 = torch.from_numpy(q).cuda()
+    q256 = torch.from_numpy(np.random.default_rng(11).standard_normal(
+        (bench.QB_BIG, d))).to("cuda", torch.bfloat16)
+    out = {}
+    for name, qq in (("q64", q64.to(torch.bfloat16)), ("q256", q256)):
+        out[name] = {
+            "knn_topk_ms": time_ms(lambda: knn.knn_topk(
+                vecs, qq, k=bench.K, block_rows=bench.BN, n_valid=n), iters),
+            "k2_ms": time_ms(lambda: knn.subblock_max(vecs, qq, 32, n),
+                             iters)}
+    codes, scales = quant.quantize_int8(vecs.to(torch.float32))
+    q8 = quant.quantize_int8(q64)[0]
+    out["int8_q64"] = {
+        "knn_topk_int8_ms": time_ms(lambda: knn.knn_topk_int8(
+            codes, scales, q64, k=bench.K, block_rows=bench.BN, n_valid=n),
+            iters),
+        "k5_ms": time_ms(lambda: knn.subblock_max_int8(
+            codes, scales, q8, 32, n), iters)}
+    return out
+
+
+def start_over_http():
+    """``orama_core_tpu_torch.start()`` in its own process on the card (a
+    free port, its own data directory, no commit: the documents serve from
+    the write window): 2,000 documents inserted over HTTP, then one
+    fulltext query held against an in-process engine fed the same writes.
+    The process is killed at the end."""
+    import socket
+    import urllib.request
+
+    from orama_core_tpu_torch import build_orama
+    from orama_core_tpu_torch.config import OramaxConfig
+    from orama_core_tpu_torch.types import SearchParams
+
+    rng = np.random.default_rng(START_SEED)
+    vocab = [f"w{i}" for i in range(400)]
+    zipf = 1.0 / np.arange(1, 401) ** 0.8
+    zipf /= zipf.sum()
+    docs = _short_docs(rng, START_DOCS, vocab, zipf)
+    body = {"term": "w3 w17", "limit": 20}
+    work = os.path.join(ROOT, "build", "chip_smoke_start")
+    shutil.rmtree(work, ignore_errors=True)
+    no_commit = {"commit_interval_sec": 3600.0,
+                 "insert_batch_commit_size": 10_000_000}
+    cfg = OramaxConfig()
+    cfg.writer_side.data_dir = os.path.join(work, "in_process", "w")
+    cfg.reader_side.data_dir = os.path.join(work, "in_process", "r")
+    for side in (cfg.writer_side, cfg.reader_side):
+        for k, v in no_commit.items():
+            setattr(side, k, v)
+    local = build_orama(cfg, start_background=False, device="cuda")
+    local.write_side.create_collection("master", "c", "rk", "wk")
+    local.flush()
+    for lo in range(0, len(docs), 500):
+        local.write_side.write("c", docs[lo:lo + 500], "wk")
+    local.flush()
+    want = local.read_side.search("c", SearchParams.from_json(body), "rk")
+    local.close()
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    env.update({"ORAMAX_http__port": str(port),
+                "ORAMAX_gpu__device": "cuda",
+                "ORAMAX_writer_side__data_dir": os.path.join(work, "w"),
+                "ORAMAX_reader_side__data_dir": os.path.join(work, "r")})
+    for side in ("writer_side", "reader_side"):
+        for k, v in no_commit.items():
+            env[f"ORAMAX_{side}__{k}"] = str(v)
+    log_path = os.path.join(work, "start.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as logf:
+        proc = subprocess.Popen(
+            [sys.executable, "-c",
+             "from orama_core_tpu_torch import start; start()"],
+            cwd=work, env=env, stdout=logf, stderr=subprocess.STDOUT)
+    base = f"http://127.0.0.1:{port}"
+    try:
+        deadline = time.perf_counter() + 240
+        while True:
+            require(proc.poll() is None, f"start(): the server exited "
+                    f"({proc.returncode}); see {log_path}")
+            try:
+                with urllib.request.urlopen(base + "/health", timeout=5):
+                    break
+            except OSError:
+                require(time.perf_counter() < deadline,
+                        "start(): no /health after 240 s")
+                time.sleep(0.2)
+        up_s = time.perf_counter() - t0
+        st, res = _http(base, "POST", "/v1/collections/create",
+                        {"id": "c", "read_api_key": "rk",
+                         "write_api_key": "wk"}, "master")
+        require(st == 201, f"start(): create: {st} {res}")
+        for lo in range(0, len(docs), 500):
+            while True:
+                st, res = _http(base, "POST", "/v1/collections/c/insert",
+                                docs[lo:lo + 500], "wk")
+                if st == 200:
+                    break
+                require(time.perf_counter() < deadline,
+                        f"start(): insert: {st} {res}")
+                time.sleep(0.1)
+        while True:
+            st, res = _http(base, "POST", "/v1/collections/c/search?api-key=rk",
+                            body)
+            require(st == 200, f"start(): search: {st} {res}")
+            if res["count"] == want.count:
+                break
+            require(time.perf_counter() < deadline,
+                    f"start(): {res['count']} of {want.count} hits after 240 s")
+            time.sleep(0.1)
+        check_hits([(h["id"], h["score"]) for h in res["hits"]],
+                   [(h.id, h.score) for h in want.hits], 1e-5,
+                   "start() over HTTP vs in process")
+        require(len(want.hits) == 20, f"start(): {len(want.hits)} hits")
+    finally:
+        proc.kill()
+        proc.wait(timeout=60)
+    shutil.rmtree(work, ignore_errors=True)
+    return {"docs": START_DOCS, "count": want.count, "up_s": up_s,
+            "wall_s": time.perf_counter() - t0}
+
+
+def run_tool(name):
+    """One tool's ``main`` at its defaults in this process on the card:
+    its JSON line, checked, and the kernel launches of its run, which
+    must include those its path is meant to use."""
+    import contextlib
+    import importlib
+    import io
+
+    from orama_core_tpu_torch.ops import _cuda
+
+    tool = importlib.import_module(f"orama_core_tpu_torch.tools.{name}")
+    key, least, kernels = ENTRY_TOOLS[name]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    _cuda.reset_launches()
+    with contextlib.redirect_stdout(buf):
+        rc = tool.main([])
+    launches = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+    require(rc == 0, f"entry: {name} exited {rc}")
+    lines = buf.getvalue().strip().splitlines()
+    require(len(lines) == 1, f"entry: {name} printed {lines}")
+    row = json.loads(lines[0])
+    if "metric" in row:
+        require(row["metric"] == key, f"entry: {name}: {row['metric']}")
+        values = [row["value"]]
+    else:
+        require(next(iter(row)) == key, f"entry: {name}: {list(row)}")
+        values = list(row.values())
+    require(all(np.isfinite(v) and v > 0 for v in values),
+            f"entry: {name}: {row}")
+    if least is not None:
+        recall = row.get("recall_at_10", row["value"])
+        require(recall >= least, f"entry: {name}: recall {recall} below "
+                f"{least}")
+    if "cards" in row:
+        require(row["cards"] == 1, f"entry: {name}: {row['cards']} cards")
+    for kernel in kernels:
+        require(launches.get(kernel, 0) > 0,
+                f"entry: {name} never launched {kernel}: {launches}")
+    return {"line": row, "launches": launches,
+            "wall_s": time.perf_counter() - t0}
+
+
+def phase_entry(card):
+    """This slice's phase: the port's bench at full size (its five lines;
+    recall@10 against the f32 exact top-k at least 0.95; K2, K3 and K5
+    launched), where its steps' time goes, the graft entry's forward and
+    dry run on four positions of card 0, ``start()`` over HTTP, and the
+    six BASELINE-config tools. Returns the ``{"entry": ...}`` record and
+    the phase's kernel launches."""
+    import contextlib
+    import io
+
+    import torch
+
+    from orama_core_tpu_torch import bench
+    from orama_core_tpu_torch.ops import _cuda
+    from orama_core_tpu_torch.tools import graft_entry
+
+    t0 = time.perf_counter()
+    _cuda.reset_launches()
+    lines, details = bench.run(bench.parse_args([]))
+    launches = dict(_cuda.LAUNCHES)
+    require([r["metric"] for r in lines] == [
+        "exact_vector_search_qps_1Mx768_top10", "bm25_seq_p50_1m",
+        "hybrid_rrf_seq_p50_1m", "bm25_batched_qps_1m",
+        "hybrid_batched_qps_1m"], f"entry: bench lines {lines}")
+    require(all(np.isfinite(r["value"]) and r["value"] > 0 for r in lines),
+            f"entry: bench values {lines}")
+    require(details["recall_at_10"] >= BENCH_RECALL_MIN,
+            f"entry: bench recall@10 {details['recall_at_10']}")
+    for name in ("knn_subblock_max", "knn_rescore", "knn_subblock_max_int8",
+                 "bm25_scan"):
+        require(launches[name] > 0, f"entry: the bench never ran {name}")
+    rec = {"bench": lines, "bench_details": details,
+           "bench_launches": {k: v for k, v in launches.items() if v},
+           "bench_wall_s": time.perf_counter() - t0}
+    rec["bench_device_split"] = bench_device_split()
+    log(f"entry: bench {lines}, {details}, {rec['bench_device_split']}")
+
+    t1 = time.perf_counter()
+    _cuda.reset_launches()
+    fwd, args = graft_entry.entry("cuda")
+    emb = fwd(*args)
+    require(tuple(emb.shape) == (8, 256) and bool(torch.isfinite(emb).all()),
+            f"entry: the forward gave {tuple(emb.shape)}")
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        dry = graft_entry.dryrun_multichip(4, "cuda")
+    require(dry["cards"] == 1, f"entry: dry run on {dry['cards']} cards")
+    rec["graft"] = {"forward": list(emb.shape), "counts": dry["counts"],
+                    "ivf_pq_top": dry["ivf_pq_top"],
+                    "said": said.getvalue().strip(),
+                    "launches": {k: v for k, v in _cuda.LAUNCHES.items()
+                                 if v},
+                    "wall_s": time.perf_counter() - t1}
+    for k, v in _cuda.LAUNCHES.items():
+        launches[k] += v
+    rec["start"] = start_over_http()
+    log(f"entry: start() {rec['start']}")
+    rec["tools"] = {}
+    for name in ENTRY_TOOLS:
+        rec["tools"][name] = run_tool(name)
+        for k, v in rec["tools"][name]["launches"].items():
+            launches[k] += v
+        log(f"entry: {name} {rec['tools'][name]}")
+        torch.cuda.empty_cache()
+    rec["launches"] = launches
+    rec["wall_s"] = time.perf_counter() - t0
+    return rec, launches
+
+
 def main() -> int:
     import torch
 
@@ -4520,6 +4826,10 @@ def main() -> int:
     for rec in records:
         rec["launches"] += tune_launches.get(rec["name"], 0)
     print(json.dumps({"tune": tune, "card": card}), flush=True)
+    entry, entry_launches = phase_entry(card)
+    for rec in records:
+        rec["launches"] += entry_launches.get(rec["name"], 0)
+    print(json.dumps({"entry": entry, "card": card}), flush=True)
     print(json.dumps({"p50_ms": p50, "card": card}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": records}), flush=True)

@@ -231,3 +231,15 @@ def build_orama(
     if device is not None:
         cfg.gpu.device = device
     return Orama(cfg, start_background=start_background)
+
+
+def start(cfg: Optional[OramaxConfig] = None) -> None:
+    """Boot the full server and block: the engine with its background
+    loops, then the HTTP API on ``cfg.http`` (the reference's ``start``).
+    Without ``cfg`` the configuration is loaded as the entry point loads
+    it (``CONFIG_PATH`` and ``ORAMAX_`` variables)."""
+    cfg = cfg or OramaxConfig.load()
+    orama = build_orama(cfg, start_background=True)
+    from .server.http import serve
+
+    serve(orama, cfg.http)

@@ -97,6 +97,11 @@ def make_mesh(
     return Mesh(arr.reshape(shape), axis_names[: len(shape)])
 
 
+def mesh_cards(mesh: Mesh) -> int:
+    """How many cards hold the mesh's positions (0 for a CPU mesh)."""
+    return len({d.index for d in mesh.devices.flat if d.type == "cuda"})
+
+
 def on_device(dev: torch.device):
     """The context a shard's launches run in: its card current (the
     kernels' wrappers launch on the current device's stream and read its
@@ -184,14 +189,19 @@ def put_stacked(mesh: Mesh, arr: np.ndarray,
 
 
 def shard_rows(mesh: Mesh, arr, dtype: Optional[torch.dtype] = None) -> Sharded:
-    """Split a host ``[S * L, ...]`` array into its S row blocks, shard
-    s's block on shard s's device."""
-    arr = np.asarray(arr)
+    """Split a host ``[S * L, ...]`` array, or a tensor on any device (in
+    any dtype, bf16 included), into its S row blocks, shard s's block on
+    shard s's device."""
     s = len(mesh.data_devices)
     if arr.shape[0] % s:
         raise ValueError(f"{arr.shape[0]} rows do not split over {s} shards")
-    return put_stacked(mesh, arr.reshape((s, arr.shape[0] // s) + arr.shape[1:]),
-                       dtype)
+    shape = (s, arr.shape[0] // s) + tuple(arr.shape[1:])
+    if not isinstance(arr, torch.Tensor):
+        return put_stacked(mesh, np.asarray(arr).reshape(shape), dtype)
+    t = arr.reshape(shape) if dtype is None else arr.reshape(shape).to(dtype)
+    if mesh.shared:
+        return Sharded.of_stacked(t.to(mesh.root))
+    return Sharded([t[i].to(d) for i, d in enumerate(mesh.data_devices)])
 
 
 def replicate(mesh: Mesh, x) -> List[torch.Tensor]:

@@ -10,4 +10,11 @@ bounds of every kernel record, ``chip_smoke.py``'s too),
 themselves) and ``sass_diff`` (K1's, K2's and K6's machine code against
 another tree's). Each runs on the card unless given ``--device cpu``
 (``knn_wide_variants`` runs on the card only); ``sass_diff`` needs only
-the CUDA toolkit."""
+the CUDA toolkit. ``graft_entry`` is the counterpart of the repo's
+``__graft_entry__.py`` (the encoder's forward step and the
+multi-position dry run); ``engine_bench``, ``embed_bench``,
+``int8_30m_bench``, ``pq_100m_bench``, ``sharded_int8_bench`` and
+``sharded_ivfpq_bench`` are the counterparts of the ``benchmarks/``
+scripts of those names that measure a BASELINE.md configuration;
+``synthetic`` builds the 1M collection of ``orama_core_tpu_torch.bench``
+(``benchmarks/hybrid_1m_bench.py``'s arrays)."""

@@ -1,6 +1,9 @@
 """Timing and bounds of every kernel record: ``chip_smoke.py``'s and the
 kernel probes' (``knn_tune_bench``, ``bm25_scan_bench``), so that every
-row of one kernels line is measured with one yardstick.
+row of one kernels line is measured with one yardstick; and the helpers of
+the entry-point benchmarks (``orama_core_tpu_torch.bench`` and the
+BASELINE-config tools): their stderr log, their host-clock rate and
+recall@k.
 
 On the card a call's time is device time: CUDA events around ``iters``
 calls queued behind a spin kernel, so the events bracket the device's
@@ -15,9 +18,11 @@ peak rate of their type (NVIDIA's data sheet).
 from __future__ import annotations
 
 import subprocess
+import sys
 import time
 from typing import Callable, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -83,3 +88,33 @@ def time_ms(fns: Union[Callable, Sequence[Callable]], iters: int,
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def log(*a) -> None:
+    """A line on stderr: stdout carries only a benchmark's JSON lines."""
+    print(*a, file=sys.stderr, flush=True)
+
+
+def timed_qps(step: Callable, n_queries: int, iters: int,
+              device: Union[str, torch.device]) -> Tuple[float, float]:
+    """(queries/s, ms a call) of ``iters`` back-to-back ``step()`` calls,
+    after one warm-up call: host clock around the loop, closed by a
+    synchronise on the card."""
+    cuda = torch.device(device).type == "cuda"
+    step()
+    if cuda:
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        step()
+    if cuda:
+        torch.cuda.synchronize(device)
+    dt = time.perf_counter() - t0
+    return n_queries * iters / dt, dt / iters * 1e3
+
+
+def recall_at_k(got, want, k: int = 10) -> float:
+    """Mean over queries of |got & want| / k (rows of ids: arrays or
+    lists)."""
+    return float(np.mean([len(set(g) & set(w)) / k
+                          for g, w in zip(got, want)]))

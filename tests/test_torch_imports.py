@@ -416,3 +416,29 @@ def test_training_tools_and_examples_load_no_jax(tmp_path):
     )
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip().endswith("ok")
+
+
+def test_bench_and_entry_point_tools_load_no_jax(tmp_path):
+    """``bench``, ``tools/graft_entry`` and the six BASELINE-config tools
+    import on the CPU without JAX, the JAX package or ``benchmarks/`` in
+    the process."""
+    code = (
+        "import sys\n"
+        "from orama_core_tpu_torch import bench, start\n"
+        "from orama_core_tpu_torch.tools import graft_entry, synthetic, "
+        "engine_bench, embed_bench, int8_30m_bench, pq_100m_bench, "
+        "sharded_int8_bench, sharded_ivfpq_bench\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'orama_core_tpu', 'benchmarks')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.dirname(PKG) + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().endswith("ok")
