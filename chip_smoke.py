@@ -83,7 +83,11 @@ the combined plan of a batch of 64 Zipf-drawn terms (row ids; in the K1
 probe line, with the fill of its 64 x capacity scores). After phase 3,
 K2 and K6 are each checked and timed at Q = 1 (the engine's shape), 8
 and 64, and K2 at 256 (batched serving's), on the exact and chunked
-corpora, with their bounds (one ``{"q_sweep": ...}`` JSON line). After
+corpora, and K5 at Q = 1, 8, 64 and 256 on the exact corpus's codes and
+on the bench's 1,000,000 x 768 codes and at Q = 64 on one chunk of
+``int8_30m_bench`` (999,424 x 384), each K5 entry equal to its plain
+version bit for bit, all with their bounds (one ``{"q_sweep": ...}``
+JSON line). After
 phase 4, batched serving on the exact collection: ``search_batch`` at
 B = 8, 64 and 256 for vector, fulltext and hybrid RRF, each row held
 against the single-query ``search`` and one batch of 8 per mode against
@@ -217,10 +221,15 @@ knn_rescore.cu`` (an export of an earlier commit) and times it on the
 same K3 selections (``compare_ms``).
 
 ``--sweep-only`` builds the kernels and runs only the Q sweep, on the same
-shapes made on the card from a seed (no collections, no result line). The
-sweep needs nothing beyond the kernel wrappers, so this file, copied into
-a checkout of an earlier commit of the port, measures that commit's K2
-and K6 the same way.
+shapes made on the card from a seed (no collections), then the entry
+phase's split of the bench's steps (``{"entry_split": ...}``: the fused
+kNN calls at 64 and 256 queries with K2 alone, the 64-query int8 call
+with K5 alone), and prints no result line. The sweep and the split need
+nothing beyond the kernel wrappers, ``bench.py``, ``utils/benchgen.py``
+and ``tools/int8_30m_bench.py``, so this file, copied into a checkout of
+an earlier commit of the port that has those, measures that commit's K2,
+K5 and K6 and the bench's steps the same way: run both on one card, in
+turns (parent, change, change, parent).
 """
 
 from __future__ import annotations
@@ -941,8 +950,7 @@ def phase_kernels_int8_mv(reader8, reader_mv, rng):
                                                       n_valid), 3)
     out.append(kernel_record(
         "knn_subblock_max_int8", 0.0, ms, pms,
-        bytes_moved=n_valid * d + n_valid * 4 + 8 * d + bm.numel() * 8,
-        ops=2 * n_valid * d * 8, peak_ops=INT8_OPS))
+        *k5_work(codes.shape[0], n_valid, d, 8), peak_ops=INT8_OPS))
     log(f"K5 ok: {codes.shape[0]} rows, n_valid {n_valid}, exact, "
         f"{ms:.4f} ms")
     for width in (768, 1024):
@@ -1005,6 +1013,14 @@ def k2_work(n, n_valid, d, q):
     return n_valid * d * 2 + q * d * 2 + (n // 32) * q * 8, 2 * n_valid * d * q
 
 
+def k5_work(n, n_valid, d, q, sub=32):
+    """(bytes, operations) K5 must spend: the live rows' codes and scales
+    and the int8 queries read once, both outputs of every sub-block
+    written once, and a multiply-add per live code and query."""
+    return (n_valid * d + n_valid * 4 + q * d + (n // sub) * q * 8,
+            2 * n_valid * d * q)
+
+
 def k6_work(n, n_valid, d, q):
     """K2's work plus the live rows' 4-byte doc ids."""
     b, ops = k2_work(n, n_valid, d, q)
@@ -1039,12 +1055,47 @@ def check_k2(vecs, qd, n_valid, sub=32, got=None):
     return err, pm
 
 
+def k5_sweep_corpora(vecs, n_valid):
+    """K5's corpora of the Q sweep, (name, codes, scales, n_valid, query
+    counts) each: the exact corpus's live bf16 rows quantized (padding
+    rows all 0); the bench's 1,000,000 x
+    768 corpus (``bench.py``'s, padded to its block) quantized as its int8
+    line does; and chunk 0 of ``int8_30m_bench`` at its defaults."""
+    import torch
+
+    from orama_core_tpu_torch import bench
+    from orama_core_tpu_torch.ops import quant
+    from orama_core_tpu_torch.tools import int8_30m_bench as i30
+    from orama_core_tpu_torch.utils.benchgen import hashed_unit_corpus
+
+    codes = torch.zeros(vecs.shape, dtype=torch.int8, device=vecs.device)
+    scales = torch.zeros(vecs.shape[0], device=vecs.device)
+    for lo in range(0, n_valid, 250_000):
+        hi = min(lo + 250_000, n_valid)
+        codes[lo:hi], scales[lo:hi] = quant.quantize_int8(vecs[lo:hi])
+    yield "", codes, scales, n_valid, (1, 8, 64, 256)
+    del codes, scales
+    n_pad = -(-bench.N // bench.BN) * bench.BN
+    codes, scales = quant.quantize_int8(
+        hashed_unit_corpus(n_pad, bench.D, 1).to(torch.float32))
+    yield f"{bench.N // 1_000_000}Mx{bench.D}/", codes, scales, bench.N, (
+        1, 8, 64, 256)
+    del codes, scales
+    chunk, _ = i30.chunk_rows(30_000_000, 4096)
+    codes, scales = i30.gen_chunk(0, chunk, 384, vecs.device)
+    yield "int8_30m_chunk/", codes, scales, chunk, (64,)
+
+
 def phase_q_sweep(vecs, n_valid, mv_vecs, mv_docs, mv_valid, rng):
     """K2 and K6 at Q = 1 (the engine's shape), 8 and 64, and K2 at 256
     (batched serving's largest batch, four 64-query corpus passes): each
     checked against its plain version and timed, with its bound. K2 on
-    the padded 1M-row corpus, K6 on the chunked one."""
-    from orama_core_tpu_torch.ops import knn
+    the padded 1M-row corpus, K6 on the chunked one. Then K5 on
+    k5_sweep_corpora's: equal to its plain version bit for bit, timed
+    beside its plain version, with its bound."""
+    import torch
+
+    from orama_core_tpu_torch.ops import knn, quant
 
     d = vecs.shape[1]
     rows = {}
@@ -1065,6 +1116,26 @@ def phase_q_sweep(vecs, n_valid, mv_vecs, mv_docs, mv_valid, rng):
             "ms": ms, "bound_ms": b, "max_abs_err": err,
             "counts_off_near_zero": nbad}
         log(f"K6 Q={q}: err {err:.3g}, {ms:.4f} ms, bound {b:.4f} ms")
+    for name, codes, scales, live, qs in k5_sweep_corpora(vecs, n_valid):
+        n, d = codes.shape
+        for q in qs:
+            q8, _ = quant.quantize_int8(unit_queries(rng, q, d))
+            got = knn.subblock_max_int8(codes, scales, q8, 32, live)
+            want = knn.subblock_max_int8_plain(codes, scales, q8, 32, live)
+            torch.cuda.synchronize()
+            require(torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1]),
+                    f"K5 differs from its plain version ({name}Q={q})")
+            del got, want
+            ms = time_ms(lambda: knn.subblock_max_int8(codes, scales, q8,
+                                                       32, live), 20)
+            pms = time_ms(lambda: knn.subblock_max_int8_plain(
+                codes, scales, q8, 32, live), 3)
+            b, _ = bound_ms(*k5_work(n, live, d, q), INT8_OPS)
+            rows[f"knn_subblock_max_int8/{name}Q={q}"] = {
+                "ms": ms, "plain_ms": pms, "bound_ms": b, "max_abs_err": 0.0}
+            log(f"K5 {name}Q={q}: {n} x {d}, n_valid {live}, exact, "
+                f"{ms:.4f} ms (plain {pms:.4f}), bound {b:.4f} ms")
     return rows
 
 
@@ -1525,21 +1596,21 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def profile_window(reader, ai, params) -> dict:
+def profile_calls(fns, unit="queries") -> dict:
     """Device busy share of the wall time and the ops that take the most
-    device and host time, from torch.profiler over ``params`` served back
-    to back by ``reader.search`` (after two first-use calls)."""
+    device and host time, from torch.profiler over the callables ``fns``
+    run back to back (after two first-use calls), per call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    for p in params[:2]:
-        reader.search(p, ai)
+    for f in fns[:2]:
+        f()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for p in params:
-            reader.search(p, ai)
+        for f in fns:
+            f()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     evts = prof.key_averages()
@@ -1552,19 +1623,26 @@ def profile_window(reader, ai, params) -> dict:
     # host side: the torch ops whose own CPU time is largest
     host = sorted(((e.key[:60], e.self_cpu_time_total) for e in evts
                    if _device_us(e) == 0), key=lambda kv: -kv[1])[:6]
-    n = len(params)
+    n = len(fns)
+    per = unit[:-1] if unit.endswith("s") else unit
     return {
-        "queries": n,
-        "wall_ms_per_query": wall_us / n / 1e3,
-        "device_ms_per_query": busy_us / n / 1e3,
+        unit: n,
+        f"wall_ms_per_{per}": wall_us / n / 1e3,
+        f"device_ms_per_{per}": busy_us / n / 1e3,
         "device_idle_share": (1.0 - busy_us / wall_us) if busy_us else None,
-        "top_device_ms_per_query": {
+        f"top_device_ms_per_{per}": {
             name: us / n / 1e3 for name, us in top
         },
-        "top_host_self_ms_per_query": {
+        f"top_host_self_ms_per_{per}": {
             name: us / n / 1e3 for name, us in host
         },
     }
+
+
+def profile_window(reader, ai, params) -> dict:
+    """profile_calls over ``params`` served back to back by
+    ``reader.search``."""
+    return profile_calls([lambda p=p: reader.search(p, ai) for p in params])
 
 
 def phase_profile(readers, rng, n_queries=16):
@@ -4450,11 +4528,15 @@ def bench_device_split():
     fused kNN call at 64 and 256 queries and of its K2 alone, and of one
     int8 kNN call at 64 queries and of its K5 alone, on the bench's
     corpus and queries (compare with the bench's host-clock ms a call),
-    SPLIT_ITERS calls each."""
+    SPLIT_ITERS calls each; the same for one chunk of ``int8_30m_bench``
+    (its ``score_chunk`` at its defaults, and K5 alone); and a
+    torch.profiler window of each int8 call (device busy share, top
+    device ops), which says what sets the call's pace beside K5."""
     import torch
 
     from orama_core_tpu_torch import bench
     from orama_core_tpu_torch.ops import knn, quant
+    from orama_core_tpu_torch.tools import int8_30m_bench as i30
     from orama_core_tpu_torch.utils.benchgen import hashed_unit_corpus
 
     n, d, iters = bench.N, bench.D, SPLIT_ITERS
@@ -4475,12 +4557,32 @@ def bench_device_split():
                              iters)}
     codes, scales = quant.quantize_int8(vecs.to(torch.float32))
     q8 = quant.quantize_int8(q64)[0]
+    def int8_call():
+        return knn.knn_topk_int8(codes, scales, q64, k=bench.K,
+                                 block_rows=bench.BN, n_valid=n)
+
     out["int8_q64"] = {
-        "knn_topk_int8_ms": time_ms(lambda: knn.knn_topk_int8(
-            codes, scales, q64, k=bench.K, block_rows=bench.BN, n_valid=n),
-            iters),
+        "knn_topk_int8_ms": time_ms(int8_call, iters),
         "k5_ms": time_ms(lambda: knn.subblock_max_int8(
-            codes, scales, q8, 32, n), iters)}
+            codes, scales, q8, 32, n), iters),
+        "profile": profile_calls([int8_call] * iters, "calls")}
+    del codes, scales
+    block = 4096  # the tool's default
+    rows, _ = i30.chunk_rows(30_000_000, block)
+    c30, s30 = i30.gen_chunk(0, rows, 384, torch.device("cuda"))
+    q30 = i30.make_queries(64, 384, torch.device("cuda"))
+    best = (torch.full((64, i30.K), float("-inf"), device="cuda"),
+            torch.zeros(64, i30.K, dtype=torch.long, device="cuda"))
+
+    def chunk_call():
+        return i30.score_chunk(c30, s30, q30, best, rows, 0, "pallas", block)
+
+    q8_30 = quant.quantize_int8(q30)[0]
+    out["int8_30m_chunk"] = {
+        "score_chunk_ms": time_ms(chunk_call, iters),
+        "k5_ms": time_ms(lambda: knn.subblock_max_int8(
+            c30, s30, q8_30, 32, rows), iters),
+        "profile": profile_calls([chunk_call] * iters, "calls")}
     return out
 
 
@@ -4728,6 +4830,8 @@ def main() -> int:
     if sweep_only:
         rows = phase_q_sweep(*sweep_corpora(), np.random.default_rng(42))
         print(json.dumps({"q_sweep": rows, "card": card}), flush=True)
+        print(json.dumps({"entry_split": bench_device_split(), "card": card}),
+              flush=True)
         return 0
 
     t0 = time.perf_counter()

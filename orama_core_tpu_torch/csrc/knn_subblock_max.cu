@@ -20,154 +20,41 @@
 // flight, restaged the queries per slice, and read the corpus once per
 // 8 queries; this one does none of these.
 //
-// Epilogue per tile: rows >= n_valid become -3e38 in the accumulator; per
-// query column, each warp reduces its 16 rows' max and count of sims > 0
-// by shuffles across the lanes that share lane % 4, writes them to
-// shared memory, and one thread per column folds the warps of each
-// 32-row half into its sub-block's running max and count, which carry
-// over tiles when sub > 64. Only the real queries' columns are written.
-// Sub-blocks wholly at or past n_valid get -3e38 / 0 without a read.
+// Epilogue per tile (MaxCount in knn_stream.cuh, shared with K5): rows
+// >= n_valid become -3e38; per query column, each warp reduces its 16
+// rows' max and count of sims > 0 by shuffles, and one thread per column
+// folds the warps of each 32-row half into its sub-block's running max
+// and count, which carry over tiles when sub > 64. Sub-blocks wholly at
+// or past n_valid get -3e38 / 0 without a read.
 
 #include "knn_stream.cuh"
 
 namespace {
 
 using namespace knn_stream;
-
-constexpr float kNeg = -3.0e38f;
-
-template <int NQ>
-struct MaxCount {
-  float* bmax;
-  int* bcnt;
-  long long n_valid, r1;
-  int q, sub;
-  float* red_max;  // [2 tile parities][4 warps][NQ]
-  int* red_cnt;
-  int q0, nq, parity;
-  float run_max;  // thread j < NQ: column j's open sub-block
-  int run_cnt;
-
-  __device__ void begin_chunk(int q0_, int nq_) {
-    q0 = q0_;
-    nq = nq_;
-    parity = 0;
-    run_max = kNeg;
-    run_cnt = 0;
-  }
-
-  __device__ void prefetch(long long) {}
-
-  __device__ void tile(Acc<NQ>& acc, long long row) {
-    const int warp = threadIdx.x / 32;
-    const int lane = threadIdx.x % 32;
-    const long long r_lo = row + 16 * warp + lane / 4;
-    const bool v_lo = r_lo < n_valid;
-    const bool v_hi = r_lo + 8 < n_valid;
-    float* rm = red_max + parity * 4 * NQ;
-    int* rc = red_cnt + parity * 4 * NQ;
-#pragma unroll
-    for (int i = 0; i < NQ / 8; ++i) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float a = v_lo ? acc.d[4 * i + e] : kNeg;
-        const float b = v_hi ? acc.d[4 * i + 2 + e] : kNeg;
-        float m = fmaxf(a, b);
-        int c = (a > 0.0f) + (b > 0.0f);
-#pragma unroll
-        for (int off = 4; off < 32; off <<= 1) {
-          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-          c += __shfl_xor_sync(0xffffffffu, c, off);
-        }
-        if (lane < 4) {
-          const int col = 8 * i + 2 * lane + e;
-          rm[warp * NQ + col] = m;
-          rc[warp * NQ + col] = c;
-        }
-      }
-    }
-    consumer_sync();
-    const int j = threadIdx.x;
-    if (j < NQ) {
-      for (int h = 0; h < 2; ++h) {  // 32-row halves: warps 2h and 2h + 1
-        const long long base = row + 32 * h;
-        if (base >= r1) break;
-        run_max = fmaxf(run_max,
-                        fmaxf(rm[2 * h * NQ + j], rm[(2 * h + 1) * NQ + j]));
-        run_cnt += rc[2 * h * NQ + j] + rc[(2 * h + 1) * NQ + j];
-        if ((base + 32) % sub == 0) {  // the half closes its sub-block
-          if (j < nq) {
-            const long long s = (base + 32) / sub - 1;
-            bmax[s * q + q0 + j] = run_max;
-            bcnt[s * q + q0 + j] = run_cnt;
-          }
-          run_max = kNeg;
-          run_cnt = 0;
-        }
-      }
-    }
-    parity ^= 1;  // the next tile writes the other buffer: no second barrier
-  }
-};
+using Bf16 = __nv_bfloat16;
 
 template <int NQ>
 __global__ void __launch_bounds__(kThreads, 1) subblock_max_kernel(
-    const __grid_constant__ CUtensorMap map,
-    const __nv_bfloat16* __restrict__ queries, float* __restrict__ bmax,
-    int* __restrict__ bcnt, long long n_sub, int d, int q, int sub,
-    long long n_valid) {
-  extern __shared__ uint8_t raw[];
-  const int nk = (d + kBoxCols - 1) / kBoxCols;
-  const Smem s = carve(raw, nk, NQ);
-  const long long n_live = (n_valid + sub - 1) / sub;
-  // sub-blocks wholly past n_valid: fixed outputs, no corpus reads
-  for (long long i = n_live * q + (long long)blockIdx.x * blockDim.x +
-                     threadIdx.x;
-       i < n_sub * q; i += (long long)gridDim.x * blockDim.x) {
-    bmax[i] = kNeg;
-    bcnt[i] = 0;
-  }
-  Walk w;
-  block_range(n_live, sub, &w.r0, &w.r1);
-  if (w.r0 >= w.r1) return;  // block-uniform
-  w.first = w.r0;
-  w.chunks = (q + NQ - 1) / NQ;
-  w.nk = nk;
-  init_barriers(s);
-  if (threadIdx.x >= kConsumers) {
-    if (threadIdx.x == kConsumers) produce(&map, s, w);
-  } else {
-    MaxCount<NQ> epi;
-    epi.bmax = bmax;
-    epi.bcnt = bcnt;
-    epi.n_valid = n_valid;
-    epi.r1 = w.r1;
-    epi.q = q;
-    epi.sub = sub;
-    epi.red_max = reinterpret_cast<float*>(s.extra);
-    epi.red_cnt =
-        reinterpret_cast<int*>(s.extra + 2 * 4 * NQ * sizeof(float));
-    consume<NQ>(s, w, queries, q, d, epi);
-  }
+    const __grid_constant__ CUtensorMap map, const Bf16* __restrict__ queries,
+    float* __restrict__ bmax, int* __restrict__ bcnt, long long n_sub, int d,
+    int q, int sub, long long n_valid) {
+  subblock_max<NQ>(&map, queries, nullptr, bmax, bcnt, n_sub, d, q, sub,
+                   n_valid);
 }
-
-constexpr int kExtraPerQuery = 2 * 4 * (sizeof(float) + sizeof(int));
 
 template <int NQ>
 int launch(const CUtensorMap& map, const void* queries, void* bmax,
            void* bcnt, long long n_sub, int d, int q, int sub,
            long long n_valid, cudaStream_t stream) {
-  const int nk = (d + kBoxCols - 1) / kBoxCols;
-  const long long n_live = (n_valid + sub - 1) / sub;
-  const long long unit = (sub % kTileRows) ? 2LL * sub : (long long)sub;
-  const size_t smem = smem_bytes(nk, NQ, NQ * kExtraPerQuery);
+  size_t smem = 0;
   int grid = 0;
-  const int err = grid_size((const void*)subblock_max_kernel<NQ>, smem,
-                            (n_live * sub + unit - 1) / unit, &grid);
+  const int err = subblock_max_launch_shape<NQ, Bf16>(
+      (const void*)subblock_max_kernel<NQ>, d, sub, n_valid, &smem, &grid);
   if (err != 0) return err;
   subblock_max_kernel<NQ><<<grid, kThreads, smem, stream>>>(
-      map, (const __nv_bfloat16*)queries, (float*)bmax, (int*)bcnt, n_sub, d,
-      q, sub, n_valid);
+      map, (const Bf16*)queries, (float*)bmax, (int*)bcnt, n_sub, d, q, sub,
+      n_valid);
   return (int)cudaGetLastError();
 }
 
@@ -179,11 +66,11 @@ extern "C" int knn_subblock_max(
   const long long n_sub = n / sub;
   if (n_sub <= 0 || q <= 0) return 0;
   n_valid = n_valid < 0 ? 0 : (n_valid > n ? n : n_valid);
-  const int nk = (d + kBoxCols - 1) / kBoxCols;
-  const int nq = pick_chunk(q, nk, kExtraPerQuery, 0);
+  const int nq = pick_chunk(q, boxes<Bf16>(d),
+                            MaxCount<kMaxChunk, Bf16>::kExtraPerQuery, 0);
   if (nq == 0) return (int)cudaErrorInvalidValue;
   CUtensorMap map;
-  const int err = corpus_map(&map, vecs, n, d);
+  const int err = corpus_map<Bf16>(&map, vecs, n, d);
   if (err != 0) return err;
   cudaStream_t st = (cudaStream_t)stream;
   switch (nq) {

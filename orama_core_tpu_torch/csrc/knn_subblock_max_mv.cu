@@ -136,7 +136,7 @@ __global__ void __launch_bounds__(kThreads, 1) subblock_max_mv_kernel(
     int* __restrict__ bcnt, long long n_sub, int d, int q, int sub,
     long long n_valid) {
   extern __shared__ uint8_t raw[];
-  const int nk = (d + kBoxCols - 1) / kBoxCols;
+  const int nk = boxes<__nv_bfloat16>(d);
   const Smem s = carve(raw, nk, NQ);
   const long long n_live = (n_valid + sub - 1) / sub;
   // sub-blocks wholly past n_valid: padding scores 0, so max 0, count 0
@@ -183,7 +183,7 @@ template <int NQ>
 int launch(const CUtensorMap& map, const void* row_docs, const void* queries,
            void* bmax, void* bcnt, long long n_sub, int d, int q, int sub,
            long long n_valid, cudaStream_t stream) {
-  const int nk = (d + kBoxCols - 1) / kBoxCols;
+  const int nk = boxes<__nv_bfloat16>(d);
   const long long n_live = (n_valid + sub - 1) / sub;
   const long long unit = (sub % kTileRows) ? 2LL * sub : (long long)sub;
   const size_t smem = smem_bytes(nk, NQ, NQ * kExtraPerQuery + kExtraFixed);
@@ -209,7 +209,7 @@ extern "C" int knn_subblock_max_mv(
   if (n_sub <= 0 || q <= 0) return 0;
   if (m_max < 1 || m_max > kTileRows) return (int)cudaErrorInvalidValue;
   n_valid = n_valid < 0 ? 0 : (n_valid > n ? n : n_valid);
-  const int nk = (d + kBoxCols - 1) / kBoxCols;
+  const int nk = boxes<__nv_bfloat16>(d);
   const int nq = pick_chunk(q, nk, kExtraPerQuery, kExtraFixed);
   if (nq == 0) return (int)cudaErrorInvalidValue;
   CUtensorMap map;

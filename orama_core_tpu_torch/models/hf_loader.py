@@ -287,9 +287,11 @@ def export_bert_checkpoint(params, cfg, vocab: Sequence[str], out: str,
 
 # -- BERT WordPiece tokenizer ------------------------------------------------
 
+# The reference tokenizer's ranges, with its 0x2B920 where BERT's original
+# Python has 0x2B820: U+2B820..U+2B91F are not spaced out there.
 _CJK_RANGES = (
     (0x4E00, 0x9FFF), (0x3400, 0x4DBF), (0x20000, 0x2A6DF),
-    (0x2A700, 0x2B73F), (0x2B740, 0x2B81F), (0x2B820, 0x2CEAF),
+    (0x2A700, 0x2B73F), (0x2B740, 0x2B81F), (0x2B920, 0x2CEAF),
     (0xF900, 0xFAFF), (0x2F800, 0x2FA1F),
 )
 
@@ -302,10 +304,22 @@ def _is_whitespace(c: str) -> bool:
     return c in " \t\n\r" or c.isspace()
 
 
+# Format characters assigned after the Unicode tables the reference
+# tokenizer (HF tokenizers' BertNormalizer) was built with: to it they are
+# unassigned, and it keeps them, as it keeps every unassigned code point.
+_LATE_FORMAT = frozenset([0x890, 0x891, 0x8E2, 0x110CD,
+                          *range(0x13430, 0x13440)])
+
+
 def _is_control(c: str) -> bool:
+    """What the reference's clean_text drops: Cc (but tab, newline and
+    carriage return), Cf, Co and Cs; never an unassigned (Cn) code point."""
     if c in "\t\n\r":
         return False
-    return unicodedata.category(c).startswith("C")
+    cat = unicodedata.category(c)
+    if cat == "Cf":
+        return ord(c) not in _LATE_FORMAT
+    return cat in ("Cc", "Co", "Cs")
 
 
 def _is_punctuation(c: str) -> bool:

@@ -55,10 +55,12 @@ def _pick_sub(block_rows: int, sub_rows: int) -> int:
     return sub
 
 
-# K2 and K6 keep a chunk of at least 8 queries resident in shared memory
-# beside a 64 KB ring of corpus tiles (csrc/knn_stream.cuh): 16 bytes a
-# column, so widths up to 8,192 fit (every registry width is <= 1,024)
+# K2, K5 and K6 keep a chunk of at least 8 queries resident in shared
+# memory beside a ring of corpus tiles (csrc/knn_stream.cuh; 64 KB in
+# bf16, 48 KB in int8): 16 bytes a column in bf16 and 8 in int8, so widths
+# up to 8,192 and 16,384 fit (every registry width is <= 1,024)
 _STREAM_MAX_D = 8192
+_STREAM_MAX_D_INT8 = 16384
 
 
 def _aligned(queries: torch.Tensor) -> torch.Tensor:
@@ -457,12 +459,13 @@ def subblock_max_int8(codes: torch.Tensor, scales: torch.Tensor,
     qn = q8.shape[0]
     if q8.shape[1] != d or scales.shape[0] != n:
         raise ValueError("codes, scales and q8 disagree in shape")
-    if d % 16 or sub % 32 or n % sub:
-        raise ValueError(f"K5 needs D % 16 == 0 and sub % 32 == 0 (D={d}, "
-                         f"sub={sub}, N={n})")
+    if d % 16 or d > _STREAM_MAX_D_INT8 or sub % 32 or n % sub:
+        raise ValueError(f"K5 needs D % 16 == 0, D <= {_STREAM_MAX_D_INT8} "
+                         f"and sub % 32 == 0 (D={d}, sub={sub}, N={n})")
     if codes.data_ptr() % 16 or q8.data_ptr() % 16:
-        raise ValueError("K5 reads codes and queries in 16-byte chunks: "
-                         "both must start 16-byte aligned")
+        raise ValueError("K5 reads the codes through a TMA tensor map and "
+                         "the queries in 16-byte chunks: both must start "
+                         "16-byte aligned")
     bmax = torch.empty(n // sub, qn, dtype=torch.float32, device=codes.device)
     bcnt = torch.empty(n // sub, qn, dtype=torch.int32, device=codes.device)
     lib = _cuda.lib("knn_subblock_max_int8")

@@ -59,16 +59,17 @@ VARIANTS: Dict[str, List[Tuple[str, str, str, int]]] = {
 COMPUTING = ("as_built", "cluster1", "cluster4", "no_setmaxnreg")
 
 
-def prepare(name: str, out: str) -> str:
+def prepare(name: str, out: str, variants=None) -> str:
     """The variant's sources: this checkout's csrc/ copied to
-    ``out/<name>/`` and edited; returns the directory. Raises if a source
-    no longer holds the text an edit replaces."""
+    ``out/<name>/`` and edited (``variants``: this tool's VARIANTS, or
+    another tool's table of the same form); returns the directory. Raises
+    if a source no longer holds the text an edit replaces."""
     from ..ops import _cuda
 
     src = os.path.join(out, name)
     shutil.rmtree(src, ignore_errors=True)
     shutil.copytree(_cuda.CSRC, src)
-    for fn, old, new, count in VARIANTS[name]:
+    for fn, old, new, count in (variants or VARIANTS)[name]:
         path = os.path.join(src, fn)
         with open(path, encoding="utf-8") as f:
             text = f.read()
@@ -80,19 +81,21 @@ def prepare(name: str, out: str) -> str:
     return src
 
 
-def build(names: Sequence[str] = tuple(VARIANTS)) -> Dict[str, str]:
-    """Every variant prepared under build/knn_wide_variants/ and compiled
-    with the kernels' flags, all at once -> {name: library}."""
+def build(names: Sequence[str] = tuple(VARIANTS), variants=None,
+          source: str = _VAR, where: str = "knn_wide_variants"
+          ) -> Dict[str, str]:
+    """Every variant prepared under build/<where>/ and its ``source``
+    compiled with the kernels' flags, all at once -> {name: library}."""
     from ..ops import _cuda
 
-    out = os.path.join(os.path.dirname(_cuda.BUILD), "knn_wide_variants")
+    out = os.path.join(os.path.dirname(_cuda.BUILD), where)
     procs = {}
     for name in names:
-        src = prepare(name, out)
+        src = prepare(name, out, variants)
         lib = os.path.join(out, f"lib{name}.so")
         procs[name] = (lib, subprocess.Popen(
             [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", lib,
-             os.path.join(src, _VAR)],
+             os.path.join(src, source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (lib, proc) in procs.items():
@@ -103,11 +106,13 @@ def build(names: Sequence[str] = tuple(VARIANTS)) -> Dict[str, str]:
     return libs
 
 
-def _load(path: str) -> ctypes.CDLL:
+def load(path: str, library: str = "knn_phase1_variants") -> ctypes.CDLL:
+    """A variant's library with the entry points of ``library``'s row in
+    ``_cuda.SIGNATURES``."""
     from ..ops import _cuda
 
     lib = ctypes.CDLL(path)
-    for fn, argtypes in _cuda.SIGNATURES["knn_phase1_variants"].items():
+    for fn, argtypes in _cuda.SIGNATURES[library].items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int
     return lib
@@ -121,7 +126,7 @@ def run(inp, libs: Dict[str, str], iters: int = 20) -> Dict:
     v, q, nv = inp["vecs"], inp["queries"], inp["n_valid"]
     n, d = v.shape
     keep = kb.BN // kb.SUB
-    loaded = {name: _load(path) for name, path in libs.items()}
+    loaded = {name: load(path) for name, path in libs.items()}
 
     def max_call(lib, qs, sub):
         out = torch.empty(n // sub, qs.shape[0], dtype=torch.float32,

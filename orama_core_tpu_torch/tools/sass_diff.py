@@ -1,12 +1,12 @@
 """Compare the machine code (SASS) of K1, K2 and K6 with another tree's.
 
 K2 (``csrc/knn_subblock_max.cu``) and K6 (``csrc/knn_subblock_max_mv.cu``)
-share ``csrc/knn_stream.cuh`` with the phase-1 probe forms
-(``csrc/knn_phase1_variants.cu``), and K1 (``csrc/bm25_scan.cu``) shares
-its loop (``csrc/bm25_scan.cuh``) with the scan probe forms
-(``csrc/bm25_scan_variants.cu``). A change to a shared header meant for
-the probes must leave K1, K2 and K6 as they were; this tool shows whether
-it did. It compiles each of the three sources of this checkout and of
+share ``csrc/knn_stream.cuh`` with K5 (``csrc/knn_subblock_max_int8.cu``)
+and the phase-1 probe forms (``csrc/knn_phase1_variants.cu``), and K1
+(``csrc/bm25_scan.cu``) shares its loop (``csrc/bm25_scan.cuh``) with the
+scan probe forms (``csrc/bm25_scan_variants.cu``). A change to a shared
+header meant for K5 or the probes must leave K1, K2 and K6 as they were;
+this tool shows whether it did. It compiles each of the three sources of this checkout and of
 ``OTHER`` (a directory holding ``orama_core_tpu_torch/csrc/`` or the
 ``csrc`` directory itself, e.g. a ``git archive`` export of the parent
 commit unpacked under ``build/``) to a cubin with the build's flags,

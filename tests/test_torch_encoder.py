@@ -283,6 +283,15 @@ def test_wordpiece_subwords_equal_transformers(subword_vocab):
         subword_vocab, texts, 48)
 
 
+def test_wordpiece_unassigned_and_late_chars_equal_transformers():
+    """Unassigned code points and format characters newer than the
+    reference's Unicode tables are kept (as [UNK]), not dropped as
+    controls; U+2B820..U+2B91F are not spaced out as CJK ideographs."""
+    texts = ["΢", "a͸b", "x ࢐y.", "\U00013439 ​",
+             "a\U0002b820b", "a\U0002b920b", " ­‮"]
+    assert _port_tok(ASSET)(texts, 64) == _hf_rows(ASSET, texts, 64)
+
+
 _ALPHABET = (
     [chr(c) for c in range(0x20, 0x7F)]                 # ASCII printable
     + [chr(c) for c in range(0xA0, 0x180)]              # Latin-1, Ext-A

@@ -14,6 +14,11 @@ multiple of 32 or 64, a corpus whose last tile holds 32 rows, sub-blocks
 of 96 rows (tiles of 64 straddle them), and multi-vector docs of up to 64
 rows that straddle the boundaries of the blocks' row ranges (at these
 sizes every block of the persistent grid walks a range of 2-3 tiles).
+K5 runs on the same core over int8 codes and is held to its plain
+version bit for bit at 1-256 queries (one, two and more passes of 64 or
+128), widths of one box of 128 codes or less (16, 48) to past the
+f32-exact 1,040 (1,056), sub-blocks of 32-128 rows, codes and queries at
++-127 up to D = 16,384, and every raise path.
 The K4 cases probe its doc ownership (empty docs at the start, inside
 and at the end of the stream, one doc longer than many blocks' shares,
 fewer positions than blocks, no positions at all) with 4, 16 or 32
@@ -122,6 +127,108 @@ def test_k2_stream_edges_on_card(d, q):
         torch.testing.assert_close(bm, pm, rtol=0, atol=1e-4)
         bad = (bc != pc) & ~_near_zero(v, qs, n_valid, sub)
         assert int(bad.sum()) == 0, (n, sub, n_valid)
+
+
+def _int8(rng, shape, device="cuda"):
+    return torch.tensor(rng.integers(-127, 128, shape, dtype=np.int8),
+                        device=device)
+
+
+def _k5_equal(codes, scales, q8, sub, n_valid):
+    """K5 and its plain version on the same inputs: both outputs equal
+    (exact s32 sums, one conversion and one f32 multiply each)."""
+    bm, bc = port.subblock_max_int8(codes, scales, q8, sub, n_valid)
+    pm, pc = port.subblock_max_int8_plain(codes, scales, q8, sub, n_valid)
+    n, q = codes.shape[0], q8.shape[0]
+    assert bm.shape == (n // sub, q) and bc.shape == (n // sub, q)
+    assert torch.equal(bm, pm) and torch.equal(bc, pc), (n, sub, n_valid)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q", [1, 3, 8, 9, 64, 65, 128, 256])
+@pytest.mark.parametrize("d", [16, 48, 384, 768, 1024, 1056])
+def test_k5_stream_edges_on_card(d, q):
+    """K5 against its plain version bit for bit: n_valid inside the first
+    64-row tile, odd, and on a sub-block boundary; corpora whose rows are
+    not a multiple of 64; sub-blocks of 32, 64, 96 (tiles straddle them)
+    and 128 rows; nothing live. Padding rows hold codes of 127 with a
+    large scale, so a row past n_valid that leaked would show."""
+    _need_card()
+    rng = np.random.default_rng(29)
+    for n, sub, n_valid in ((4096, 32, 37),       # inside the first tile
+                            (19232, 32, 19219),   # 32-row tail, odd live
+                            (19296, 96, 19200),   # on a 96-row boundary
+                            (19328, 64, 12345),   # odd live
+                            (19200, 128, 12800),  # on a 128-row boundary
+                            (4096, 32, 0)):       # nothing live
+        codes = _int8(rng, (n, d))
+        codes[n_valid:] = 127
+        scales = torch.tensor(rng.uniform(1e-3, 2e-2, n).astype(np.float32),
+                              device="cuda")
+        scales[n_valid:] = 1e3
+        _k5_equal(codes, scales, _int8(rng, (q, d)), sub, n_valid)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q", [1, 64, 65])
+@pytest.mark.parametrize("d", [8192, 16384])
+def test_k5_full_scale_codes_on_card(d, q):
+    """Codes and queries at +-127: at D = 8,192 and 16,384 the sums reach
+    1.3e8 and 2.6e8, far past f32's exact integers, so the kernel's and
+    the plain version's single conversion of each must round alike."""
+    _need_card()
+    rng = np.random.default_rng(31)
+    n = 4096
+    codes = torch.tensor(np.where(rng.random((n, d)) < 0.9, 127, -127)
+                         .astype(np.int8), device="cuda")
+    q8 = torch.tensor(np.where(rng.random((q, d)) < 0.9, 127, -127)
+                      .astype(np.int8), device="cuda")
+    scales = torch.tensor(rng.uniform(1e-3, 2e-2, n).astype(np.float32),
+                          device="cuda")
+    _k5_equal(codes, scales, q8, 32, 4001)
+    _k5_equal(codes, scales, -q8, 64, n)  # every sim negative
+
+
+@pytest.mark.gpu
+def test_k5_raises_on_what_it_does_not_take():
+    """A CUDA tensor reaches K5 or an exception, never a plain fallback."""
+    _need_card()
+    rng = np.random.default_rng(37)
+    codes = _int8(rng, (4096, 64))
+    scales = torch.ones(4096, device="cuda")
+    q8 = _int8(rng, (2, 64))
+    with pytest.raises(TypeError):  # not int8 codes
+        port.subblock_max_int8(codes.float(), scales, q8, 32, 4096)
+    with pytest.raises(TypeError):  # not f32 scales
+        port.subblock_max_int8(codes, scales.double(), q8, 32, 4096)
+    with pytest.raises(TypeError):  # not int8 queries
+        port.subblock_max_int8(codes, scales, q8.float(), 32, 4096)
+    with pytest.raises(ValueError):  # not contiguous
+        port.subblock_max_int8(codes[:, ::2], scales, q8[:, ::2], 32, 4096)
+    with pytest.raises(ValueError):  # widths disagree
+        port.subblock_max_int8(codes, scales, q8[:, :48].contiguous(), 32,
+                               4096)
+    with pytest.raises(ValueError):  # one scale short
+        port.subblock_max_int8(codes, scales[:-1], q8, 32, 4096)
+    with pytest.raises(ValueError):  # D % 16 != 0
+        port.subblock_max_int8(codes[:, :40].contiguous(), scales,
+                               q8[:, :40].contiguous(), 32, 4096)
+    wide = _int8(rng, (64, 16400))
+    with pytest.raises(ValueError):  # D past the core's limit
+        port.subblock_max_int8(wide, torch.ones(64, device="cuda"),
+                               _int8(rng, (1, 16400)), 32, 64)
+    with pytest.raises(ValueError):  # sub % 32 != 0
+        port.subblock_max_int8(codes, scales, q8, 16, 4096)
+    with pytest.raises(ValueError):  # N % sub != 0
+        port.subblock_max_int8(codes[:4064], scales[:4064], q8, 64, 4064)
+    flat = torch.empty(4096 * 64 + 16, dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError):  # codes not 16-byte aligned
+        port.subblock_max_int8(flat[1:1 + 4096 * 64].view(4096, 64), scales,
+                               q8, 32, 4096)
+    flat_q = torch.empty(2 * 64 + 16, dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError):  # queries not 16-byte aligned
+        port.subblock_max_int8(codes, scales,
+                               flat_q[8:8 + 2 * 64].view(2, 64), 32, 4096)
 
 
 def _mv_corpus(rng, n, n_valid, m_max, d):
