@@ -113,6 +113,7 @@ from ..utils import (
     flatten_ranges,
     read_json,
     read_npz,
+    tracing,
 )
 
 
@@ -2358,7 +2359,9 @@ class CollectionReader:
                 by_model.setdefault(f.model, []).append(fid)
         fm_host = None
         for model, fids in by_model.items():
+            tracing.phase("search_batch.embed", n=len(terms))
             q = ai_service.embed_query(model, terms)                # [B, D]
+            tracing.phase("search_batch.dispatch")
             qn = q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-12)
             q_dev = put(np.asarray(qn, np.float32))
             for fid in fids:
@@ -2519,18 +2522,30 @@ class CollectionReader:
         """Batched search of compatible queries (same mode, filters, boost
         and fusion; no facets): one device program scores the batch, from
         one pinned view of the reader (``_pinned``).
-        Returns [(ranked [(doc_id, score)], match count)] per query."""
-        return self._pinned(self._search_batch, params_list, ai_service)
+        Returns [(ranked [(doc_id, score)], match count)] per query.
+
+        Traced (``utils/tracing``): one ``search_batch`` span with its
+        ``route`` and ``chunks``, tiled by the phases ``search_batch.embed``,
+        ``.plan``, ``.dispatch`` (one a chunk's device program), ``.sync``
+        and ``.reply``."""
+        with tracing.span("search_batch", profile=True, phased=True,
+                          n=len(params_list)):
+            tracing.phase("search_batch.plan")
+            return self._pinned(self._search_batch, params_list, ai_service)
 
     def _search_batch(self, params_list: List[SearchParams], ai_service):
         if not params_list:
             return []
+        from ..server import metrics as m
+
         p0 = params_list[0]
         if (p0.mode != SearchModeKind.FULLTEXT
                 and self.cfg.vector_index in ANN_VMODES):
             # an ANN index scores each query on its own candidates, which
             # the batch's corpus product cannot give: rows one by one
             # (read_side batches vector modes of exact indexes only)
+            tracing.annotate(route="ann_rows")
+            m.VECTOR_PATH.inc(path="batch_ann_rows")
             out_ann = []
             for p in params_list:
                 ranked, count, _ = self.search(p, ai_service)
@@ -2541,6 +2556,8 @@ class CollectionReader:
             # single-query fused program serves it
             helig = self._hybrid_fused_eligible(p0)
             if helig is not None:
+                tracing.annotate(route="fused_" + helig[0], chunks=1)
+                m.VECTOR_PATH.inc(path="batch_fused_" + helig[0])
                 ranked, count, _ = self._search_hybrid_fused(
                     p0, ai_service, *helig
                 )
@@ -2550,6 +2567,7 @@ class CollectionReader:
         if p0.mode != SearchModeKind.VECTOR and any(
             len(p.term.split()) > 1 for p in params_list
         ):
+            tracing.annotate(route="phrase_split")
             out_mixed: List[Optional[Tuple[List[Tuple[int, float]], int]]] = (
                 [None] * len(params_list)
             )
@@ -2574,6 +2592,8 @@ class CollectionReader:
         ):
             fast_fid = self._vector_fast_field(p0)
             if fast_fid is not None:
+                tracing.annotate(route="knn_fast", chunks=1)
+                m.VECTOR_PATH.inc(path="batch_knn_fast")
                 return self._search_batch_vector_topk_fast(
                     params_list, ai_service, fast_fid
                 )
@@ -2597,16 +2617,22 @@ class CollectionReader:
         ):
             mode, sfids, vfid, filts, _facs, _live = helig
             nf = (filts[0][1], filts[0][2]) if filts else None
+            tracing.annotate(route="fused_" + mode)
+            m.VECTOR_PATH.inc(path="batch_fused_" + mode)
             return self._search_batch_hybrid_fused(
                 params_list, ai_service, mode,
                 sfids[0] if sfids else None, vfid, nf,
             )
+        tracing.annotate(route="generic")
         filter_mask = self._filter_mask(p0.where)
         terms = [p.term for p in params_list]
         cand = (
             self._filter_candidates(p0.where)
             if p0.mode != SearchModeKind.FULLTEXT else None
         )
+        # the per-mode scorers plan and enqueue by turns (and embed:
+        # search_vector_batch opens its own phases)
+        tracing.phase("search_batch.dispatch")
         if p0.mode == SearchModeKind.VECTOR:
             scores = self.search_vector_batch(terms, ai_service, filter_mask,
                                               cand=cand)
@@ -2625,7 +2651,9 @@ class CollectionReader:
         k = min(max(p.limit for p in params_list), self.capacity)
         vals_t, idx_t = topk_ops.topk_stable(scores, k)
         counts_t = torch.sum(scores > 0, dim=1)
+        tracing.phase("search_batch.sync")
         vals, idx, counts = _to_host(vals_t), _to_host(idx_t), _to_host(counts_t)
+        tracing.phase("search_batch.reply")
         out = []
         for row, p in enumerate(params_list):
             ranked = [
@@ -2690,6 +2718,7 @@ class CollectionReader:
         params_list, with the host tombstone and freshness-window merges."""
         from ..ops import knn as knn_ops
 
+        tracing.phase("search_batch.plan")
         # capture the field container ONCE (commit swaps it atomically)
         vfield = self._vector[fid]
         c = vfield.committed
@@ -2715,6 +2744,7 @@ class CollectionReader:
         k = 16 if want <= 16 else min(bucket_pad(want, (16, 128, 1024)), c.n_vectors)
         k = min(k, c.n_vectors)
         q_dev = self._device.put(qb)
+        tracing.phase("search_batch.dispatch", chunk=0)
         if multivec:
             # rows aggregate by doc in the kernel (sum of relu cos, the
             # dense scorer's semantics); ids come back as DOC ids
@@ -2737,7 +2767,9 @@ class CollectionReader:
                 vecs_dev, q_dev.to(vecs_dev.dtype), k=k, block_rows=bn,
                 n_valid=c.n_vectors,
             )
+        tracing.phase("search_batch.sync")
         vals, rows, count = _to_host(vals_t), _to_host(rows_t), _to_host(count_t)
+        tracing.phase("search_batch.reply")
         unc = vfield.uncommitted
         deleted = self.deleted
         # tombstone correction: deleted docs' committed vectors are on host
@@ -2813,6 +2845,7 @@ class CollectionReader:
     def _search_batch_vector_topk_fast(
         self, params_list: List[SearchParams], ai_service, fid: int
     ) -> List[Tuple[List[Tuple[int, float]], int]]:
+        tracing.phase("search_batch.embed", n=len(params_list))
         q = ai_service.embed_query(self.fields[fid].model,
                                    [p.term for p in params_list])
         qn = q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-12)
@@ -3072,6 +3105,8 @@ class CollectionReader:
     ) -> Tuple[List[Tuple[int, float]], int, Optional[Dict[str, FacetResult]]]:
         from ..ops import hybrid as hybrid_ops
 
+        # a batch's phases where a search_batch serves this query
+        tracing.phase("search_batch.plan")
         cap = self.capacity
         put = self._device.put
         fields = []
@@ -3105,9 +3140,11 @@ class CollectionReader:
             vmode, v_statics, v_ann, (vecs, vec_docs, vec_valid) = (
                 self._fused_vector_args(vf.committed, params.limit)
             )
+            tracing.phase("search_batch.embed", n=1)
             qn = self._resolve_query_vec(
                 self.fields[vfid].model, params.term, ai_service, raw_vec
             )
+            tracing.phase("search_batch.plan")
             if not vf.uncommitted.is_empty:
                 vf.uncommitted.search(qn, None, None, u_vec_out)
         else:
@@ -3229,10 +3266,12 @@ class CollectionReader:
         flts = np.concatenate(
             [np.asarray(a, np.float32).reshape(-1) for a in flt_parts]
         )
+        ints_dev, flts_dev = put(ints), put(flts)
 
         k = min(bucket_pad(params.limit, (16, 128, 1024)), cap)
+        tracing.phase("search_batch.dispatch", chunk=0)
         vals_t, idx_t, count_t, fouts_t = hybrid_ops.hybrid_fused_topk_mf(
-            put(ints), put(flts), tuple(fields), vecs, vec_docs, vec_valid,
+            ints_dev, flts_dev, tuple(fields), vecs, vec_docs, vec_valid,
             alive, tuple(filter_cols), tuple(facet_cols),
             n_docs=cap, k=k,
             fusion="minmax" if params.fusion == HybridFusion.MINMAX else "rrf",
@@ -3244,9 +3283,11 @@ class CollectionReader:
             u_vec_n=u_vec_n, qdim=qdim, vmode=vmode, v_statics=v_statics,
             v_ann=v_ann,
         )
+        tracing.phase("search_batch.sync")
         vals, idx = _to_host(vals_t), _to_host(idx_t)
         count = int(count_t)
         fouts = [_to_host(t) for t in fouts_t]
+        tracing.phase("search_batch.reply")
         ranked = [
             (int(d), float(s))
             for d, s in zip(idx[: params.limit], vals[: params.limit])
@@ -3299,6 +3340,7 @@ class CollectionReader:
         runs eagerly, so a padding row would only add work."""
         from ..ops import hybrid as hybrid_ops
 
+        plan_ph = tracing.phase("search_batch.plan")
         cap = self.capacity
         put = self._device.put
         p0 = params_list[0]
@@ -3329,10 +3371,12 @@ class CollectionReader:
             term_df = committed.term_df() if dense_rows is not None else None
             row_plans: List[Tuple[List[int], List[int]]] = []
             row_sels: List[Tuple[List[int], List[float]]] = []
+            n_terms = 0
             for p in params_list:
                 tokens, stems = query_expansion(parser, p.term)
                 # non-phrase by construction (search_batch routes phrases)
                 spans = expanded_spans(committed.term_dict, tokens, stems)[0]
+                n_terms += sum(hi - lo for lo, hi in spans)
                 if dense_rows is not None:
                     p_lo, p_len, sel, w = bm25_ops.split_spans_dense(
                         spans, ts_host, row_by_term, term_df, gi_n
@@ -3343,6 +3387,10 @@ class CollectionReader:
                     sel, w = [], []
                 row_plans.append((p_lo, p_len))
                 row_sels.append((sel, w))
+            # the terms the dense head rows serve, and those K1 scans
+            n_dense = sum(len(sel) for sel, _w in row_sels)
+            plan_ph["dense_terms"] = n_dense
+            plan_ph["k1_terms"] = n_terms - n_dense
             d_docs, d_tf, d_ni, d_plens = self._device.string_arrays(committed)
         else:
             gi_avgdl = gi_n = 1.0
@@ -3353,8 +3401,10 @@ class CollectionReader:
         vf = None
         if vfid is not None:
             vf = self._vector[vfid]
+            tracing.phase("search_batch.embed", n=b_real)
             q = ai_service.embed_query(self.fields[vfid].model,
                                        [p.term for p in params_list])
+            tracing.phase("search_batch.plan")
             qn = np.asarray(q, np.float32)
             qn = qn / np.maximum(np.linalg.norm(qn, axis=1, keepdims=True),
                                  1e-12)
@@ -3400,8 +3450,10 @@ class CollectionReader:
             if bb * cap <= self._BATCH_DENSE_SLOTS and bb * cap < 2**31:
                 chunk = bb
                 break
+        tracing.annotate(chunks=-(-b_real // chunk))
         pending = []
         for c0 in range(0, b_real, chunk):
+            tracing.phase("search_batch.plan")
             rows_c = list(range(c0, min(c0 + chunk, b_real)))
             b = len(rows_c)
             int_parts: List[np.ndarray] = []
@@ -3425,11 +3477,12 @@ class CollectionReader:
                     flt_parts.append(w_mat.reshape(-1))
             if qdim:
                 flt_parts.append(qn[rows_c].reshape(-1))
-            ints = (np.concatenate(int_parts) if int_parts
-                    else np.zeros(1, np.int32))
+            ints = put(np.concatenate(int_parts) if int_parts
+                       else np.zeros(1, np.int32))
+            flts = put(np.concatenate(flt_parts))
+            tracing.phase("search_batch.dispatch", chunk=c0 // chunk)
             out = hybrid_ops.hybrid_fused_topk_batch(
-                put(ints), put(np.concatenate(flt_parts)),
-                d_docs, d_tf, d_ni, d_plens,
+                ints, flts, d_docs, d_tf, d_ni, d_plens,
                 dense_rows if use_dense else zf,
                 vecs, vec_docs, vec_valid, alive, nvals, ndocs, nvalid,
                 n_docs=cap, k=k, fusion=fusion, nf=kind, masked=masked,
@@ -3438,13 +3491,16 @@ class CollectionReader:
                               if vf is not None else False),
             )
             pending.append((rows_c, out))
-        # one host sync for every chunk's results
+        # one host sync for every chunk's results; a chunk's replies are
+        # built while the device runs the chunks after it
         results: List[Optional[Tuple[List[Tuple[int, float]], int]]] = (
             [None] * b_real
         )
-        for rows_c, (vals_t, idx_t, counts_t) in pending:
+        for c_i, (rows_c, (vals_t, idx_t, counts_t)) in enumerate(pending):
+            tracing.phase("search_batch.sync", chunk=c_i)
             vals, idx, counts = (_to_host(vals_t), _to_host(idx_t),
                                  _to_host(counts_t))
+            tracing.phase("search_batch.reply", chunk=c_i)
             for i, r in enumerate(rows_c):
                 p = params_list[r]
                 ranked = [

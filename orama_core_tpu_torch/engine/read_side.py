@@ -31,7 +31,8 @@ from ..types import (
     SearchResult,
     SearchResultHit,
 )
-from ..utils import ensure_dir, read_json, atomic_write_json
+from ..server import metrics as m
+from ..utils import ensure_dir, read_json, atomic_write_json, tracing
 from .collection_read import CollectionReader
 from .document_storage import DocumentStorage
 
@@ -248,27 +249,40 @@ class ReadSide:
         with_documents: bool = True,
     ) -> SearchResult:
         t0 = time.perf_counter()
-        reader = (
-            self._reader(collection_id)
-            if skip_auth
-            else self.check_read_key(collection_id, read_api_key)
-        )
-        offset = params.offset
-        if offset:
-            # pagination: rank offset+limit, slice after (the shared
-            # kernels and the batcher only know a single k)
-            import dataclasses as _dc
-
-            params = _dc.replace(params, limit=params.limit + offset, offset=0)
-        if self._batchable(params):
-            ranked, count = self._batcher.submit(
-                self._batch_key(collection_id, params), params
+        # the request's span: the batcher's queue span names it as parent
+        with tracing.span("read_side.search") as sp:
+            reader = (
+                self._reader(collection_id)
+                if skip_auth
+                else self.check_read_key(collection_id, read_api_key)
             )
-            facets = None
-        else:
-            ranked, count, facets = reader.search(params, self.ai)
-        if offset:
-            ranked = ranked[offset:]
+            offset = params.offset
+            if offset:
+                # pagination: rank offset+limit, slice after (the shared
+                # kernels and the batcher only know a single k)
+                import dataclasses as _dc
+
+                params = _dc.replace(params, limit=params.limit + offset, offset=0)
+            batched = self._batchable(params)
+            sp["batched"] = batched
+            if batched:
+                ranked, count = self._batcher.submit(
+                    self._batch_key(collection_id, params), params
+                )
+                facets = None
+            else:
+                ranked, count, facets = reader.search(params, self.ai)
+            if offset:
+                ranked = ranked[offset:]
+            with tracing.span("read_side.hits", n=len(ranked)):
+                hits = self._hits(collection_id, ranked, with_documents)
+        elapsed = time.perf_counter() - t0
+        m.SEARCH_ELAPSED.observe(elapsed, collection=collection_id)
+        return SearchResult(hits=hits, count=count, elapsed_ms=elapsed * 1e3,
+                            facets=facets)
+
+    def _hits(self, collection_id: str, ranked, with_documents: bool
+              ) -> List[SearchResultHit]:
         storage = self.doc_storage[collection_id]
         hits: List[SearchResultHit] = []
         for doc_id, score in ranked:
@@ -281,8 +295,7 @@ class ReadSide:
                 # only a last resort for docs missing from storage
                 uid = storage.user_id_of(doc_id) or str(doc_id)
             hits.append(SearchResultHit(id=uid, score=score, document=doc))
-        elapsed_ms = (time.perf_counter() - t0) * 1e3
-        return SearchResult(hits=hits, count=count, elapsed_ms=elapsed_ms, facets=facets)
+        return hits
 
     def count_documents(self, collection_id: str) -> int:
         return self._reader(collection_id).doc_count

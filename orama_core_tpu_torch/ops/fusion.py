@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import tracing
 from .topk import topk_stable
 
 RRF_K = 60.0
@@ -126,28 +127,34 @@ def rrf_fuse_topk_batch(ft_scores: torch.Tensor, vec_scores: torch.Tensor,
     counts int32[B] = #docs matched by either modality)."""
     n = ft_scores.shape[1]
     c = min(cand, n)
-    fi = topk_stable(ft_scores, c)[1]
-    vi = topk_stable(vec_scores, c)[1]
-    g = torch.cat([fi, vi], dim=1)                       # [B, 2c]
-    ft_g = torch.gather(ft_scores, 1, g)
-    vec_g = torch.gather(vec_scores, 1, g)
-    r_ft = _candidate_ranks(ft_scores, g).to(torch.float32)
-    r_vec = _candidate_ranks(vec_scores, g).to(torch.float32)
-    zero = torch.zeros_like(ft_g)
-    fused = torch.where(ft_g > 0, 1.0 / (RRF_K + r_ft + 1.0), zero) + \
-        torch.where(vec_g > 0, 1.0 / (RRF_K + r_vec + 1.0), zero)
-    # dedup docs proposed by both modalities (identical fused values)
-    g_s, order = torch.sort(g, dim=1, stable=True)
-    f_s = torch.gather(fused, 1, order)
-    dup = torch.cat([
-        torch.zeros(g.shape[0], 1, dtype=torch.bool, device=g.device),
-        g_s[:, 1:] == g_s[:, :-1],
-    ], dim=1)
-    f_s = torch.where(dup, torch.full_like(f_s, float("-inf")), f_s)
-    v, ix = topk_stable(f_s, k)
-    counts = torch.sum((ft_scores > 0) | (vec_scores > 0), dim=1)
-    return (torch.clamp(v, min=0.0), torch.gather(g_s, 1, ix),
-            counts.to(torch.int32))
+    # traced: each step a profiler range of its own (the ranks' passes
+    # enqueue hundreds of host ops each)
+    with tracing.span("rrf.candidates", profile=True):
+        fi = topk_stable(ft_scores, c)[1]
+        vi = topk_stable(vec_scores, c)[1]
+        g = torch.cat([fi, vi], dim=1)                   # [B, 2c]
+        ft_g = torch.gather(ft_scores, 1, g)
+        vec_g = torch.gather(vec_scores, 1, g)
+    with tracing.span("rrf.ranks", profile=True):
+        r_ft = _candidate_ranks(ft_scores, g).to(torch.float32)
+    with tracing.span("rrf.ranks", profile=True):
+        r_vec = _candidate_ranks(vec_scores, g).to(torch.float32)
+    with tracing.span("rrf.select", profile=True):
+        zero = torch.zeros_like(ft_g)
+        fused = torch.where(ft_g > 0, 1.0 / (RRF_K + r_ft + 1.0), zero) + \
+            torch.where(vec_g > 0, 1.0 / (RRF_K + r_vec + 1.0), zero)
+        # dedup docs proposed by both modalities (identical fused values)
+        g_s, order = torch.sort(g, dim=1, stable=True)
+        f_s = torch.gather(fused, 1, order)
+        dup = torch.cat([
+            torch.zeros(g.shape[0], 1, dtype=torch.bool, device=g.device),
+            g_s[:, 1:] == g_s[:, :-1],
+        ], dim=1)
+        f_s = torch.where(dup, torch.full_like(f_s, float("-inf")), f_s)
+        v, ix = topk_stable(f_s, k)
+        counts = torch.sum((ft_scores > 0) | (vec_scores > 0), dim=1)
+        return (torch.clamp(v, min=0.0), torch.gather(g_s, 1, ix),
+                counts.to(torch.int32))
 
 
 def rrf_fuse_topk(ft_scores: torch.Tensor, vec_scores: torch.Tensor, k: int,

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import tracing
 from . import bm25 as bm25_ops
 from . import facets as facet_ops
 from . import filters as filter_ops
@@ -349,37 +350,43 @@ def hybrid_fused_topk_batch(
         else:
             raise ValueError(f"nf={nf!r}")
         mask = filter_ops.combine_masks(alive_mask, m)
+    # traced: each phase a profiler range, timed on the stream by events
+    dev = flts.device
     if mode != "vector":
-        ba_idx, ba_lo, ba_hi, row_id = (take_i(n_blocks) for _ in range(4))
-        ft = bm25_ops.bm25_scores_blocked_aligned_batch(
-            post_docs, post_tf, post_ni, post_lens, ba_idx, ba_lo, ba_hi,
-            row_id, boost, avgdl, nfd, n_docs=n_docs, n_blocks=n_blocks, b=b,
-        )
-        if dense:
-            h = dense_rows.shape[0]
-            w = take_f(b * h).reshape(b, h)
-            ft = ft + boost * (w @ dense_rows)
-        if masked:
-            ft = ft * mask[None, :]
+        with tracing.span("fused.bm25", profile=True, device=dev, b=b):
+            ba_idx, ba_lo, ba_hi, row_id = (take_i(n_blocks) for _ in range(4))
+            ft = bm25_ops.bm25_scores_blocked_aligned_batch(
+                post_docs, post_tf, post_ni, post_lens, ba_idx, ba_lo, ba_hi,
+                row_id, boost, avgdl, nfd, n_docs=n_docs, n_blocks=n_blocks,
+                b=b,
+            )
+            if dense:
+                h = dense_rows.shape[0]
+                w = take_f(b * h).reshape(b, h)
+                ft = ft + boost * (w @ dense_rows)
+            if masked:
+                ft = ft * mask[None, :]
     if mode != "fulltext":
-        queries = take_f(b * qdim).reshape(b, qdim)
-        vec = vector_ops.brute_force_scores_batch(
-            vecs, vec_docs, vec_valid, queries, mask, n_docs=n_docs,
-            identity=vec_identity,
-        )
-    if mode == "fulltext":
-        fused = ft
-    elif mode == "vector":
-        fused = vec
-    else:
-        if fusion == "rrf":
+        with tracing.span("fused.vector", profile=True, device=dev, b=b):
+            queries = take_f(b * qdim).reshape(b, qdim)
+            vec = vector_ops.brute_force_scores_batch(
+                vecs, vec_docs, vec_valid, queries, mask, n_docs=n_docs,
+                identity=vec_identity,
+            )
+    with tracing.span("fused.rank", profile=True, device=dev, b=b):
+        if mode == "fulltext":
+            fused = ft
+        elif mode == "vector":
+            fused = vec
+        elif fusion == "rrf":
             vals, idx, counts = rrf_fuse_topk_batch(
                 ft, vec, k, rrf_candidate_count(k))
             return vals, idx.to(torch.int32), counts
-        # min-max per row: each row divides by its own max
-        m = torch.clamp(torch.maximum(ft.amax(dim=1), vec.amax(dim=1)),
-                        min=1e-9)
-        fused = (ft + vec) / m[:, None]
-    vals, idx = dense_topk(fused, k)
-    counts = torch.sum(fused > 0, dim=1).to(torch.int32)
-    return vals, idx.to(torch.int32), counts
+        else:
+            # min-max per row: each row divides by its own max
+            m = torch.clamp(torch.maximum(ft.amax(dim=1), vec.amax(dim=1)),
+                            min=1e-9)
+            fused = (ft + vec) / m[:, None]
+        vals, idx = dense_topk(fused, k)
+        counts = torch.sum(fused > 0, dim=1).to(torch.int32)
+        return vals, idx.to(torch.int32), counts

@@ -357,8 +357,7 @@ def _make_handler(orama):
             mo = re.match(r"^/v1/collections/([^/]+)/search$", path)
             if mo and method == "POST":
                 params = SearchParams.from_json(self._body() or {})
-                with m.SEARCH_ELAPSED.time(collection=mo.group(1)):
-                    result = read_side.search(mo.group(1), params, self._api_key())
+                result = read_side.search(mo.group(1), params, self._api_key())
                 self._send(200, result.to_json())
                 return 200
 

@@ -171,24 +171,19 @@ REGISTRY = Registry()
 
 # Metric inventory (names mirror metrics.rs so the shipped Grafana dashboard
 # concepts carry over; the reference's typo'd *_historgram is fixed).
+# every ReadSide.search, in process or over HTTP
 SEARCH_ELAPSED = REGISTRY.register(
     Histogram("reader_search_elapsed_sec", "search latency")
 )
-SEARCH_FILTER_ELAPSED = REGISTRY.register(
-    Histogram("reader_search_filter_elapsed_sec", "filter evaluation latency")
+# the micro-batcher (server/batcher.py; no reference counterpart): the
+# queries of each batched search, and each query's wait from its enqueue
+# to the start of the batch that carries it
+BATCH_SIZE = REGISTRY.register(
+    Histogram("reader_batch_size", "queries per batched search",
+              buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024))
 )
-SEARCH_FILTER_MATCHED = REGISTRY.register(
-    Histogram(
-        "reader_search_filter_matched_histogram",
-        "docs matched by filters",
-        buckets=(1, 10, 100, 1_000, 10_000, 100_000, 1_000_000),
-    )
-)
-DOC_PROCESS_ELAPSED = REGISTRY.register(
-    Histogram("writer_doc_process_elapsed_sec", "per-document write processing")
-)
-STRING_CALC_ELAPSED = REGISTRY.register(
-    Histogram("writer_calc_string_elapsed_sec", "string field indexing")
+BATCH_QUEUE_WAIT = REGISTRY.register(
+    Histogram("reader_batch_queue_wait_sec", "query wait for its batch")
 )
 EMBED_CALC_ELAPSED = REGISTRY.register(
     Histogram("writer_calc_embed_elapsed_sec", "embedding batch computation")
@@ -214,15 +209,14 @@ EMBEDDING_GAUGE = REGISTRY.register(
 PENDING_EMBEDDING_GAUGE = REGISTRY.register(
     Gauge("pending_embedding_request_gauge", "embedding requests in flight")
 )
-JS_REQUEST_GAUGE = REGISTRY.register(
-    Gauge("javascript_request_gauge", "js hook jobs in flight")
-)
 HTTP_REQUESTS = REGISTRY.register(
     Counter("http_requests_total", "http requests by route/status")
 )
 # serving-path engagement (no reference counterpart): which vector route
 # answered — "fast" (fused kNN kernel), "selective" (gather-then-score
-# filter), "dense" — so deployments can verify the fast paths engage
+# filter), "dense" — so deployments can verify the fast paths engage;
+# batched searches count once a batch under "batch_knn_fast",
+# "batch_fused_<mode>" and "batch_ann_rows"
 VECTOR_PATH = REGISTRY.register(
     Counter("reader_vector_path_total", "vector queries by serving path")
 )
