@@ -266,6 +266,9 @@ TPU_KERNELS = {
         "orama_core_tpu/ops/pallas_knn.py:94"),
     "knn_subblock_max_mv": ("orama_core_tpu_torch/csrc/knn_subblock_max_mv.cu",
                             "orama_core_tpu/ops/pallas_knn.py:442"),
+    # no Pallas kernel: the reference's jnp.dot, left to XLA
+    "knn_dense_scores": ("orama_core_tpu_torch/csrc/knn_dense_scores.cu",
+                         "orama_core_tpu/ops/vector.py:66"),
     # the probe forms of benchmarks/ (the tune phase)
     "knn_max_only": ("orama_core_tpu_torch/csrc/knn_phase1_variants.cu",
                      "benchmarks/knn_tune_bench.py:114"),
@@ -582,6 +585,8 @@ def phase_kernels(reader, rng, probe_lib, compare_lib=None):
         log(f"K2 ok at D={width}: 262,144 rows, n_valid 250,000, Q=8, "
             f"err {werr:.3g}, {wms:.4f} ms")
         del vw
+
+    out.append(check_dense_scores(gen))
 
     # K3: the sub-blocks phase 2 selects (k = 16) at Q = 8 (the record:
     # 128 slots), 64 and 256 (batched serving: 1,024 and 4,096 slots)
@@ -997,6 +1002,72 @@ def phase_kernels_int8_mv(reader8, reader_mv, rng):
     return out
 
 
+def dense_scores_work(p, n_docs, d, b):
+    """(bytes, operations) the dense scores kernel must spend: the corpus
+    rows, their validity, the doc mask and the queries read once, the
+    [b, n_docs] scores written once, and a multiply-add per corpus element
+    and query."""
+    return (p * d * 2 + p * 4 + n_docs * 4 + b * d * 2 + b * n_docs * 4,
+            2 * p * d * b)
+
+
+def check_dense_scores(gen, p=2_866_316, n_docs=2_867_200, d=384, b=16):
+    """The batched serving product at the Signal-1M cell's shape (its
+    2,866,316 rows in a capacity of 2,867,200 docs, a chunk of 16 queries,
+    the identity layout, a mask with dead docs and rows marked invalid):
+    the dense scores kernel against its plain twin (within 2e-6 on unit
+    rows: the same exact bf16 products summed in another order; exactly
+    zero where the row is invalid, the doc masked out or past the corpus),
+    both timed."""
+    import torch
+
+    from orama_core_tpu_torch.ops import _cuda
+    from orama_core_tpu_torch.ops import vector as vops
+
+    vecs = torch.empty(p, d, dtype=torch.bfloat16, device="cuda")
+    for lo in range(0, p, 1 << 20):  # unit rows, drawn a slab at a time
+        x = torch.randn(min(1 << 20, p - lo), d, generator=gen,
+                        device="cuda")
+        vecs[lo:lo + x.shape[0]] = (x / x.norm(dim=1, keepdim=True)).to(
+            torch.bfloat16)
+    valid = (torch.rand(p, generator=gen, device="cuda") >= 0.1).float()
+    mask = torch.ones(n_docs, device="cuda")
+    mask[::7] = 0
+    qf = torch.randn(b, d, generator=gen, device="cuda")
+    queries = qf / qf.norm(dim=1, keepdim=True)
+    docs = torch.arange(p, dtype=torch.int32, device="cuda")
+    args = (vecs, docs, valid, queries, mask)
+    launches = _cuda.LAUNCHES["knn_dense_scores"]
+    got = vops.brute_force_scores_batch(*args, n_docs=n_docs, identity=True)
+    require(_cuda.LAUNCHES["knn_dense_scores"] == launches + 1,
+            "the dense scores kernel did not take the cell's layout")
+    want = vops.brute_force_scores_batch_plain(*args, n_docs=n_docs,
+                                               identity=True)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    require(err <= 2e-6, f"dense scores disagree with the plain twin: {err}")
+    require(bool((got[:, p:] == 0).all()), "dense scores: pad not zero")
+    require(bool((got[:, mask == 0] == 0).all()),
+            "dense scores: a masked-out doc scored")
+    require(bool((got[:, :p][:, valid == 0] == 0).all()),
+            "dense scores: an invalid row scored")
+    require(int((got > 0).sum()) > b * p // 4, "dense scores: too few > 0")
+    del got, want
+    ms = time_ms(lambda: vops.brute_force_scores_batch(
+        *args, n_docs=n_docs, identity=True), 20)
+    pms = time_ms(lambda: vops.brute_force_scores_batch_plain(
+        *args, n_docs=n_docs, identity=True), 3)
+    rec = kernel_record("knn_dense_scores", err, ms, pms,
+                        *dense_scores_work(p, n_docs, d, b),
+                        peak_ops=BF16_FLOPS)
+    log(f"dense scores ok: {p:,} x {d} in {n_docs:,} docs, B={b}, err "
+        f"{err:.3g}, {ms:.4f} ms (bound {rec['bound_ms']:.4f}), plain "
+        f"{pms:.4f} ms")
+    del vecs
+    torch.cuda.empty_cache()
+    return rec
+
+
 def unit_queries(rng, q, d):
     """q unit-norm bf16 queries on the card, from the numpy generator."""
     import torch
@@ -1290,7 +1361,7 @@ def phase_engine(readers, rng, n_queries=32):
 BATCH_MODES = {  # mode: (search mode, kernels every batch must launch)
     "vector": ("vector", ("knn_subblock_max", "knn_rescore")),
     "fulltext": ("fulltext", ("bm25_scan",)),
-    "hybrid_rrf": ("hybrid", ("bm25_scan",)),
+    "hybrid_rrf": ("hybrid", ("bm25_scan", "knn_dense_scores")),
 }
 BATCH_SIZES = (8, 64, 256)
 

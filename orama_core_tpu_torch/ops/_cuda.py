@@ -54,6 +54,7 @@ LAUNCHES: Dict[str, int] = {
     "phrase_counts": 0,
     "knn_subblock_max_int8": 0,
     "knn_subblock_max_mv": 0,
+    "knn_dense_scores": 0,
     # the probe forms of benchmarks/ (tools/knn_tune_bench.py,
     # tools/bm25_scan_bench.py)
     "knn_max_only": 0,
@@ -100,6 +101,10 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         # vecs, row_docs, queries, bmax, bcnt, n, d, q, sub, n_valid,
         # m_max, stream
         "knn_subblock_max_mv": [_P] * 5 + [_L, _I, _I, _I, _L, _I, _P],
+    },
+    "knn_dense_scores": {
+        # vecs, queries, valid, mask, out, rows, n_docs, d, q, stream
+        "knn_dense_scores": [_P] * 5 + [_L, _L, _I, _I, _P],
     },
     "knn_phase1_variants": {
         # vecs, queries (or qt), bmax, n, d, q, sub, n_valid, form, stream

@@ -367,6 +367,7 @@ def hybrid_fused_topk_batch(
             if masked:
                 ft = ft * mask[None, :]
     if mode != "fulltext":
+        # brute_force_scores_batch sets the span's route (kernel or torch)
         with tracing.span("fused.vector", profile=True, device=dev, b=b):
             queries = take_f(b * qdim).reshape(b, qdim)
             vec = vector_ops.brute_force_scores_batch(

@@ -39,7 +39,7 @@ import torch
 
 from . import _cuda, quant
 from .topk import topk_stable
-from .vector import sims_f32
+from .vector import _STREAM_MAX_D, _aligned, sims_f32
 
 NEG = -3.0e38
 
@@ -57,16 +57,10 @@ def _pick_sub(block_rows: int, sub_rows: int) -> int:
 
 # K2, K5 and K6 keep a chunk of at least 8 queries resident in shared
 # memory beside a ring of corpus tiles (csrc/knn_stream.cuh; 64 KB in
-# bf16, 48 KB in int8): 16 bytes a column in bf16 and 8 in int8, so widths
-# up to 8,192 and 16,384 fit (every registry width is <= 1,024)
-_STREAM_MAX_D = 8192
+# bf16, 48 KB in int8): 16 bytes a column in bf16 (_STREAM_MAX_D, beside
+# the dense scores kernel in ops/vector.py) and 8 in int8, so widths up
+# to 8,192 and 16,384 fit (every registry width is <= 1,024)
 _STREAM_MAX_D_INT8 = 16384
-
-
-def _aligned(queries: torch.Tensor) -> torch.Tensor:
-    """The queries as K2/K6 read them: rows in 16-byte loads, so the base
-    must be 16-byte aligned (a fresh copy where a view is not)."""
-    return queries.clone() if queries.data_ptr() % 16 else queries
 
 
 # -- K2: per-sub-block max / positive count -----------------------------------

@@ -245,6 +245,16 @@ def annotate(**fields: Any) -> None:
             return
 
 
+def note(**fields: Any) -> None:
+    """Set fields on the innermost span open on this thread, whatever it
+    is (a no-op while off or outside every span)."""
+    if not _on:
+        return
+    stack = _stack()
+    if stack:
+        stack[-1].fields.update(fields)
+
+
 def current_id() -> Optional[int]:
     """The id of this thread's innermost open span (None while off)."""
     if not _on:

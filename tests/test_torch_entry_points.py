@@ -166,9 +166,14 @@ def _launch(code, tmp, env_extra):
     port = _free_port()
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
                + os.environ.get("PYTHONPATH", ""), **env_extra)
+    # no interval commit while the test runs: a committed index adds the
+    # phrase boost that the uncommitted window does not, so a server that
+    # commits first would answer another question
     env.update({"ORAMAX_http__port": str(port),
                 "ORAMAX_writer_side__data_dir": str(tmp / "w"),
-                "ORAMAX_reader_side__data_dir": str(tmp / "r")})
+                "ORAMAX_reader_side__data_dir": str(tmp / "r"),
+                "ORAMAX_writer_side__commit_interval_sec": "3600",
+                "ORAMAX_reader_side__commit_interval_sec": "3600"})
     proc = subprocess.Popen([sys.executable, "-c", code], cwd=tmp, env=env,
                             stdout=subprocess.DEVNULL,
                             stderr=subprocess.DEVNULL)
@@ -181,6 +186,12 @@ def _create_insert_search(base):
         "id": "c", "read_api_key": "r", "write_api_key": "w"}, "master")
     _until(lambda: _req(base, "/v1/collections/c/insert", DOCS, "w")
            and True, "insert")
+    # the first search only once the read side holds the last document: the
+    # reference's alive-mask cache (collection_read._alive_mask_device) can
+    # keep a mask copied while inserts were still being applied
+    _until(lambda: _req(base, "/v1/collections/c/documents/"
+                        + DOCS[-1]["id"] + "?api-key=r") and True,
+           "the last document on the read side")
 
     def search(body):
         return json.loads(_req(base, "/v1/collections/c/search?api-key=r",

@@ -27,7 +27,11 @@ posting, one block, repeated docs, a padded bucket, pads only) and a
 batch's combined plan with row ids (one row, empty rows, pads only); the
 K3 cases its slab ring (one, odd and all of Q x k slots for Q up to 256,
 the corpus's last sub-block, sub = 8, 16, 32, widths whose rows are not
-16 bytes, half-slab pieces at D = 2048, an unaligned corpus view)."""
+16 bytes, half-slab pieces at D = 2048, an unaligned corpus view). The
+dense scores cases (``-k dense``) hold the batched serving product
+(csrc/knn_dense_scores.cu) to its plain twin at 1-256 queries, widths 384
+and 768, corpora shorter and longer than the doc range, and the engine's
+layout, and its refusal of inputs the kernel cannot read."""
 
 import numpy as np
 import pytest
@@ -788,3 +792,150 @@ def test_mesh_launches_on_each_shards_card():
         s * torch.cuda.device_count() // 4 for s in range(4)]
     assert not mesh.shared
     _check_mesh_against_cpu(mesh)
+
+
+# -- the dense scores kernel (csrc/knn_dense_scores.cu) ----------------------
+
+DENSE_LAYOUTS = {
+    # corpus rows (not a multiple of 64) below n_docs: the kernel writes
+    # the pad; above it: the kernel reads only the first n_docs rows
+    "pad": (20_011, 20_500),
+    "slice": (20_011, 19_950),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", sorted(DENSE_LAYOUTS))
+@pytest.mark.parametrize("b", [1, 8, 16, 64, 65, 256])
+@pytest.mark.parametrize("d", [384, 768])
+def test_dense_scores_match_plain_on_card(d, b, layout):
+    """The batched serving product on the kernel against its plain twin
+    on the card: unit rows and queries, so f32 sums of the same exact bf16
+    products in another order differ by at most 2e-6; exact zeros where
+    the row is invalid, the doc masked out, the similarity clearly
+    negative, or the doc past the corpus; one launch a call."""
+    _need_card()
+    from orama_core_tpu_torch.ops import _cuda
+    from orama_core_tpu_torch.ops import vector as vops
+
+    p, n_docs = DENSE_LAYOUTS[layout]
+    rng = np.random.default_rng(d + b)
+    v = rng.standard_normal((p, d)).astype(np.float32)
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    vecs = torch.tensor(v, device="cuda").to(torch.bfloat16)
+    valid = torch.tensor((rng.random(p) > 0.1).astype(np.float32),
+                         device="cuda")
+    mask = torch.tensor((rng.random(n_docs) > 0.1).astype(np.float32),
+                        device="cuda")
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    queries = torch.tensor(q, device="cuda")
+    docs = torch.arange(p, dtype=torch.int32, device="cuda")
+    before = _cuda.LAUNCHES["knn_dense_scores"]
+    got = vops.brute_force_scores_batch(vecs, docs, valid, queries, mask,
+                                        n_docs=n_docs, identity=True)
+    assert _cuda.LAUNCHES["knn_dense_scores"] == before + 1
+    want = vops.brute_force_scores_batch_plain(vecs, docs, valid, queries,
+                                               mask, n_docs=n_docs,
+                                               identity=True)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (b, n_docs)
+    assert (got - want).abs().max().item() <= 2e-6
+    m = min(p, n_docs)
+    sims = vops.sims_f32(vecs[:m], queries).T                # [b, m]
+    zero = torch.zeros(b, n_docs, dtype=torch.bool, device="cuda")
+    zero[:, :m] = (sims < -1e-5) | (valid[:m] == 0)[None, :]
+    zero[:, m:] = True
+    zero |= (mask == 0)[None, :]
+    assert bool((got[zero] == 0).all())
+    assert int((got > 0).sum()) > b * n_docs // 4
+
+
+@pytest.mark.gpu
+def test_dense_scores_engine_layout_on_card():
+    """The engine's layout: the corpus a prefix view of its bucket-padded
+    rows, the queries a view into the staged f32 upload (any offset), the
+    mask the alive mask times a filter; against the plain twin."""
+    _need_card()
+    from orama_core_tpu_torch.ops import _cuda
+    from orama_core_tpu_torch.ops import vector as vops
+
+    rng = np.random.default_rng(9)
+    p, p_pad, n_docs, d, b = 30_001, 32_768, 30_720, 384, 16
+    v = rng.standard_normal((p_pad, d)).astype(np.float32)
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    padded = torch.tensor(v, device="cuda").to(torch.bfloat16)
+    padded[p:] = 0
+    vecs, valid = padded[:p], torch.ones(p_pad, device="cuda")[:p]
+    alive = torch.ones(n_docs, device="cuda")
+    alive[::7] = 0
+    price = torch.tensor(rng.random(n_docs).astype(np.float32), device="cuda")
+    mask = alive * (price < 0.5).to(torch.float32)
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    flts = torch.tensor(np.concatenate([[1.0, 2.0, 3.0], q.ravel()])
+                        .astype(np.float32), device="cuda")
+    queries = flts[3:].reshape(b, d)
+    docs = torch.arange(p, dtype=torch.int32, device="cuda")
+    before = _cuda.LAUNCHES["knn_dense_scores"]
+    got = vops.brute_force_scores_batch(vecs, docs, valid, queries, mask,
+                                        n_docs=n_docs, identity=True)
+    want = vops.brute_force_scores_batch_plain(vecs, docs, valid, queries,
+                                               mask, n_docs=n_docs,
+                                               identity=True)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["knn_dense_scores"] == before + 1
+    assert (got - want).abs().max().item() <= 2e-6
+    assert bool((got[:, p:] == 0).all())
+    # non-identity rows and f32 corpora (whose queries are not rounded to
+    # bf16) stay on the torch code
+    for corpus, identity in ((vecs.float(), True), (vecs, False)):
+        args = (corpus, docs, valid, queries, mask)
+        out = vops.brute_force_scores_batch(*args, n_docs=n_docs,
+                                            identity=identity)
+        plain = vops.brute_force_scores_batch_plain(*args, n_docs=n_docs,
+                                                    identity=identity)
+        assert torch.equal(out, plain)
+    assert _cuda.LAUNCHES["knn_dense_scores"] == before + 1
+
+
+DENSE_UNREADABLE = {  # a bf16 identity corpus on the card the kernel
+    # cannot read: brute_force_scores_batch raises, as K2 does
+    "d_not_multiple_of_8": lambda v, valid, mask: (
+        torch.zeros(v.shape[0], 380, dtype=torch.bfloat16, device="cuda"),
+        valid, mask),
+    "misaligned_view": lambda v, valid, mask: (
+        torch.zeros(v.numel() + 1, dtype=torch.bfloat16,
+                    device="cuda")[1:].view(v.shape), valid, mask),
+    "f64_mask": lambda v, valid, mask: (v, valid, mask.double()),
+    "mask_of_other_length": lambda v, valid, mask: (v, valid, mask[:-1]),
+    "valid_of_other_length": lambda v, valid, mask: (v, valid[:-1], mask),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(DENSE_UNREADABLE))
+def test_dense_scores_refuse_unreadable_inputs_on_card(case):
+    """No torch fallback on the card: each input the kernel cannot read
+    raises ValueError and launches nothing, and the inputs it is edited
+    from go through the kernel."""
+    _need_card()
+    from orama_core_tpu_torch.ops import _cuda
+    from orama_core_tpu_torch.ops import vector as vops
+
+    p, n_docs, d, b = 1_000, 1_024, 384, 4
+    vecs = torch.zeros(p, d, dtype=torch.bfloat16, device="cuda")
+    valid = torch.ones(p, device="cuda")
+    mask = torch.ones(n_docs, device="cuda")
+    queries = torch.ones(b, d, device="cuda")
+    docs = torch.arange(p, dtype=torch.int32, device="cuda")
+    before = _cuda.LAUNCHES["knn_dense_scores"]
+    vops.brute_force_scores_batch(vecs, docs, valid, queries, mask,
+                                  n_docs=n_docs, identity=True)
+    assert _cuda.LAUNCHES["knn_dense_scores"] == before + 1
+    v2, valid2, mask2 = DENSE_UNREADABLE[case](vecs, valid, mask)
+    with pytest.raises(ValueError):
+        vops.brute_force_scores_batch(v2, docs, valid2,
+                                      queries[:, :v2.shape[1]], mask2,
+                                      n_docs=n_docs, identity=True)
+    assert _cuda.LAUNCHES["knn_dense_scores"] == before + 1

@@ -1437,6 +1437,18 @@ def _outcome(run_hook_fn, code, entry, doc):
         return ("raise", [c.__name__ for c in type(e).__mro__[:-1]], msg)
 
 
+def _same_key(a, b):
+    # each runtime has its own `undefined`, and `o[undefined] = v` leaves it
+    # behind as a property key: the two stand for the same JS value
+    from orama_core_tpu.engine import minijs as ref_minijs
+    from orama_core_tpu_torch.engine import minijs as port_minijs
+
+    undefined = (ref_minijs._UNDEFINED, port_minijs._UNDEFINED)
+    if any(a is u for u in undefined) or any(b is u for u in undefined):
+        return any(a is u for u in undefined) and any(b is u for u in undefined)
+    return a == b
+
+
 def _same(a, b):
     if isinstance(a, float) and isinstance(b, float) and a != a and b != b:
         return True  # NaN
@@ -1445,7 +1457,9 @@ def _same(a, b):
     if isinstance(a, (list, tuple)):
         return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
     if isinstance(a, dict):
-        return list(a) == list(b) and all(_same(a[k], b[k]) for k in a)
+        return len(a) == len(b) and all(
+            _same_key(ka, kb) and _same(va, vb)
+            for (ka, va), (kb, vb) in zip(a.items(), b.items()))
     return a == b
 
 

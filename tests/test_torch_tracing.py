@@ -181,6 +181,20 @@ def test_phases_tile_their_owner():
     assert one["end_ns"] <= two["start_ns"] and two["end_ns"] <= owner["end_ns"]
 
 
+def test_note_sets_fields_on_the_innermost_open_span():
+    tracing.note(lost=1)                     # off: nothing
+    tracing.enable()
+    tracing.note(lost=2)                     # no span open: nothing
+    with tracing.span("owner", phased=True, route="r"):
+        tracing.phase("p.one")
+        tracing.note(route="kernel")         # the open phase, not its owner
+        with tracing.span("inside"):
+            tracing.note(k=3)
+    recs = {r["name"]: r["fields"] for r in tracing.spans()}
+    assert recs == {"inside": {"k": 3}, "p.one": {"route": "kernel"},
+                    "owner": {"route": "r"}}
+
+
 def _profiler_events(prof, name):
     return [(e.start_ns(), e.end_ns())
             for e in prof.profiler.kineto_results.events() if e.name() == name]
